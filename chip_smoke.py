@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's encrypted packed search on one GPU.
+"""Drive the PyTorch/CUDA port's encrypted search paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,9 @@ Phases (any failure raises and the exit code is not 0):
 2. Each kernel against its plain PyTorch version on the card, bit-exact:
    the NTT at N = 512 .. 16384 with 1 and 2 limbs and several batch
    shapes, the scoring kernel at the slice shape, a ragged and a
-   one-group store.
+   one-group store; the NTT's cyclic entry at N = 16 .. 256 with 1 and 12
+   limbs; the all-to-all at 2, 4 and 8 shards, at both exchanges of the
+   ring-16384 four-step NTT and at a chunk that is not a multiple of 16 B.
 3. The main path at full width, preset pairwise-4096 (N = 4096, 2 limbs):
    keys from seed 0, 65,536 per-document quantized unit vectors
    (d = 128, scale 1000) encrypted in batches of 8192, packed into 2048
@@ -21,10 +23,30 @@ Phases (any failure raises and the exit code is not 0):
    counts are zeroed just before this phase and must all have risen.
    Then where a query's time goes: host time per stage and, from
    torch.profiler, device time by kernel and the card's idle share.
-4. Times on the card (CUDA events, median of repeats after warm-up) of
-   each kernel, its plain version and, for scoring, the int8 matmul
-   alone through `torch._int_mm`, beside the least time the card could
-   take (bytes at 3.35 TB/s or operations at the published peak rate).
+4. The multi-shard path at full width, on a mesh of 8 logical shards
+   (all on one card when it has one): a 100,000-document pairwise-4096
+   store packed into 3125 groups padded to 3128, sharded over dp and
+   searched by 8 queries (`make_sharded_packed_search`, top-10, n_docs
+   masking), every score and top-10 exact; the ring-16384 four-step NTT
+   over 8 sp shards (12 limbs, N1 = N2 = 128): round trips and products
+   equal to the single-card NTT's; `entry.dryrun_multichip(8)`.  Launch
+   counts are zeroed before the phase and read after it.  Then the
+   8-shard search step against one shard holding 1/8 of the store (and
+   the card's busy time and idle share over the step), and the
+   distributed forward NTT against the single-card one.
+   Only where several cards are visible, the shards then spread over all
+   of them (`cross_card`): the all-to-all through peer pointers against
+   its plain version, the four-step NTT and a sharded search across
+   cards, and the all-to-all's times beside the NVLink bound.  With one
+   card this phase is skipped.  To run it alone on a host with several,
+   call `device_and_build()` and then `cross_card(np.random.default_rng(0))`
+   from Python (`python3 -c "import chip_smoke; ..."`).
+5. Times on the card (CUDA events, median of repeats after warm-up) of
+   each kernel, its plain version and, where one PyTorch call computes
+   the same function (the int8 matmul alone through `torch._int_mm`; one
+   strided `copy_` for the all-to-all), that call, beside the least time
+   the card could take (bytes at 3.35 TB/s, NVLink at 450 GB/s each way,
+   or operations at the published peak rate).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -44,20 +66,31 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from fhe_icp_tpu_torch import kernels  # noqa: E402
+from fhe_icp_tpu_torch import entry, kernels  # noqa: E402
 from fhe_icp_tpu_torch.ops import arith, ntt_cuda, pack, pack_cuda  # noqa: E402
 from fhe_icp_tpu_torch.ops import primes as pr  # noqa: E402
 from fhe_icp_tpu_torch.ops.cipher import Ciphertext, decrypt_coeff  # noqa: E402
 from fhe_icp_tpu_torch.ops.context import CryptoContext  # noqa: E402
+from fhe_icp_tpu_torch.ops.modmath import mont_mul, to_mont  # noqa: E402
 from fhe_icp_tpu_torch.ops.ntt import build_plan  # noqa: E402
 from fhe_icp_tpu_torch.ops.params import get_params  # noqa: E402
 from fhe_icp_tpu_torch.ops.runtime import FheRuntime  # noqa: E402
+from fhe_icp_tpu_torch.parallel import ici  # noqa: E402
+from fhe_icp_tpu_torch.parallel.mesh import (PACKED_OPERAND_SPEC, SP_AXIS, gather,  # noqa: E402
+                                             make_mesh, shard)
+from fhe_icp_tpu_torch.parallel.ntt_dist import (ROW_SPEC, build_dist_plan,  # noqa: E402
+                                                 make_dist_ntt)
+from fhe_icp_tpu_torch.parallel.search import make_sharded_packed_search  # noqa: E402
 
 DEVICE = "cuda"
 PRESET = "pairwise-4096"
 DIM, SCALE = 128, 1000.0
 N_DOCS, ENC_BATCH = 65_536, 8192
 N_QUERIES, TOP_K = 8, 10
+# The multi-shard path: BASELINE config 5's store on an 8-shard dp mesh, and
+# the ring-16384 preset's 12 limbs for the four-step NTT on 8 sp shards.
+N_SHARDS, N_DOCS_SHARDED, PAD_GROUPS = 8, 100_000, 8
+RING, RING_N1 = "ring-16384", 128
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -65,13 +98,22 @@ INT8_OPS_PER_S = 1979e12
 # 32-bit integer multiplies (IMAD) on the CUDA cores: 64 per clock per SM,
 # half the float32 FMA rate behind the 67 TFLOP/s float32 peak.
 INT32_MUL_PER_S = 67e12 / 4
+# NVLink between the cards of one host: 900 GB/s, 450 GB/s each way.
+NVLINK_BYTES_PER_S = 450e9
 
 KERNELS = {
     "ntt_fwd": ("fhe_icp_tpu_torch/csrc/ntt.cu", "fhe_icp_tpu/ops/ntt_pallas.py:152"),
     "ntt_inv": ("fhe_icp_tpu_torch/csrc/ntt.cu", "fhe_icp_tpu/ops/ntt_pallas.py:165"),
     "pack_score": ("fhe_icp_tpu_torch/csrc/pack_score.cu",
                    "fhe_icp_tpu/ops/pack_pallas.py:67"),
+    "ntt_cyclic_fwd": ("fhe_icp_tpu_torch/csrc/ntt.cu", "fhe_icp_tpu/ops/ntt_pallas.py:152"),
+    "ntt_cyclic_inv": ("fhe_icp_tpu_torch/csrc/ntt.cu", "fhe_icp_tpu/ops/ntt_pallas.py:165"),
+    "all_to_all": ("fhe_icp_tpu_torch/csrc/all_to_all.cu", "fhe_icp_tpu/parallel/ici.py:28"),
 }
+# The kernels each path must launch.
+MAIN_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pack_score")
+SHARD_PATH_KERNELS = ("all_to_all", "pack_score", "ntt_fwd", "ntt_cyclic_fwd",
+                      "ntt_cyclic_inv")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -114,7 +156,7 @@ def random_residues(rng, plan, shape) -> torch.Tensor:
     l = shape[-2]
     ps = np.asarray(plan.primes[:l], dtype=np.uint64)[:, None]
     x = rng.integers(0, 2 ** 31, size=shape, dtype=np.uint64) % ps
-    return torch.from_numpy(x.astype(np.uint32)).cuda()
+    return torch.from_numpy(x.astype(np.uint32)).to(DEVICE)
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +237,61 @@ def kernels_vs_plain(rng) -> dict:
           "mod_switch on the card differs from the CPU")
     check(torch.equal(rt.decrypt(want), m), "mod_switch decrypt")
     print("  mod_switch_to(2) at test-512-mult: card == CPU, decrypts exactly")
+    cyclic_vs_plain(rng, errs)
+    all_to_all_vs_plain(rng, errs)
     return errs
+
+
+def cyclic_vs_plain(rng, errs: dict) -> None:
+    """The NTT's cyclic entry (no twist) at the four-step NTT's sizes and below."""
+    primes = get_params(RING).primes
+    for n in (16, 32, 64, 128, 256):
+        for limbs in (1, len(primes)):
+            plan = build_plan(n, primes[:limbs], DEVICE)
+            x = random_residues(rng, plan, (16, limbs, n))
+            e_f = max_abs_err(ntt_cuda.cyclic_fwd(plan, x), ntt_cuda.cyclic_fwd_ref(plan, x))
+            e_i = max_abs_err(ntt_cuda.cyclic_inv(plan, x), ntt_cuda.cyclic_inv_ref(plan, x))
+            check(e_f == e_i == 0, f"cyclic NTT N={n} L={limbs}: {e_f} {e_i}")
+            errs["ntt_cyclic_fwd"] = max(errs["ntt_cyclic_fwd"], e_f)
+            errs["ntt_cyclic_inv"] = max(errs["ntt_cyclic_inv"], e_i)
+    print(f"  cyclic NTT N=16..256, L=1 and {len(primes)}, 16 rows: fwd, inv bit-exact")
+
+
+def ring_shards(rng, d: int, shape) -> list:
+    """d shards of uint32 residues of the ring preset's primes, limbs on axis 0."""
+    ps = np.asarray(get_params(RING).primes[:shape[0]], dtype=np.uint64)
+    ps = ps.reshape((-1,) + (1,) * (len(shape) - 1))
+    return [torch.from_numpy((rng.integers(0, 2 ** 31, size=shape, dtype=np.uint64) % ps)
+                             .astype(np.uint32)).to(DEVICE) for _ in range(d)]
+
+
+def random_flats(devices, rows: int, w: int) -> list:
+    """One random (rows, w) uint32 shard on each device (any 32-bit values)."""
+    return [torch.randint(0, 2 ** 31, (rows, w), dtype=torch.int64, device=dev)
+            .to(torch.uint32) for dev in devices]
+
+
+def all_to_all_vs_plain(rng, errs: dict) -> None:
+    """K3 at 2, 4, 8 shards: the ring-16384 exchanges, the 2-D entry, an odd chunk."""
+    n_l = len(get_params(RING).primes)
+    ring_n2 = get_params(RING).n // RING_N1
+    for d in (2, 4, 8):
+        cases = [((n_l, RING_N1 // d, ring_n2), 2, 1),      # rows -> columns
+                 ((n_l, RING_N1, ring_n2 // d), 1, 2),      # columns -> rows
+                 ((3, 8, 5), 1, 2)]                         # chunk 60 B at d = 8
+        for shape, split, concat in cases:
+            xs = ring_shards(rng, d, shape)
+            got = ici.all_to_all(xs, split, concat)
+            want = ici.all_to_all_ref(xs, split, concat)
+            e = max(max_abs_err(g, w) for g, w in zip(got, want))
+            check(e == 0, f"all_to_all d={d} {shape} split {split}: {e}")
+            errs["all_to_all"] = max(errs["all_to_all"], e)
+        flats = random_flats([torch.device(DEVICE)] * d, d * 3, 7)
+        e = max(max_abs_err(g, w)
+                for g, w in zip(ici.exchange(flats), ici.all_to_all_ref(flats, 0, 0)))
+        check(e == 0, f"exchange d={d}: {e}")
+    print("  all_to_all d=2,4,8 at both ring-16384 exchanges, an odd chunk, and the "
+          "2-D exchange: bit-exact")
 
 
 def main_path(rng) -> dict:
@@ -261,7 +357,7 @@ def main_path(rng) -> dict:
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t_start
     launches = dict(kernels.launches)
-    for name in KERNELS:
+    for name in MAIN_PATH_KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} not launched on the main path")
 
     q_ms = statistics.median(lat[1:]) * 1e3
@@ -312,12 +408,21 @@ def query_breakdown(ctx, sk, doc_op, queries, pt_corr) -> None:
           f"{len(qs)}): " + "; ".join(f"{name} {statistics.median(v):.3f} ms"
                                       for name, v in per_stage.items()))
 
+    device_view(lambda i: one_query(qs[i], lambda: None), len(qs), "query")
+
+
+def device_view(run, count: int, unit: str) -> None:
+    """Busy time, idle share and top kernels of `count` back-to-back run(i) (torch.profiler).
+
+    Busy time is the union of the device activity intervals; the idle
+    share is the rest of the profiled window.
+    """
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for q in qs:
-            one_query(q, lambda: None)
+        for i in range(count):
+            run(i)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events()
@@ -336,11 +441,230 @@ def query_breakdown(ctx, sk, doc_op, queries, pt_corr) -> None:
     for e in dev:
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-    print(f"  device view (torch.profiler, {len(qs)} queries): busy {busy / 1e3:.3f} ms "
+    print(f"  device view (torch.profiler, {unit} x {count}): busy {busy / 1e3:.3f} ms "
           f"of a {window_us / 1e3:.3f} ms window, idle share {1 - busy / window_us:.3f}; "
           f"{len(dev)} device activities")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"    {t / 1e3 / len(qs):.4f} ms/query  x{c / len(qs):g}  {name[:90]}")
+        print(f"    {t / 1e3 / count:.4f} ms/{unit}  x{c / count:g}  {name[:90]}")
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock time of fn() in ms, each run ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def multi_shard_path(rng) -> dict:
+    """The multi-shard path, its launch counts, then its two comparisons."""
+    phase(f"multi-shard path: {N_DOCS_SHARDED} documents on {N_SHARDS} dp shards, "
+          f"{RING} four-step NTT on {N_SHARDS} sp shards, dryrun_multichip({N_SHARDS})")
+    docs = quantized_unit(rng, (N_DOCS_SHARDED, DIM))
+    queries = quantized_unit(rng, (N_QUERIES, DIM))
+    ring = ring_ntt_case(rng)
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t_start = time.perf_counter()
+    search = sharded_search(docs, queries)
+    dist = ring_sharded_ntt(ring)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(N_SHARDS, DEVICE)
+    torch.cuda.synchronize()
+    print(f"  dryrun_multichip({N_SHARDS}) on the card: three programs exact, "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = dict(kernels.launches)
+    for name in SHARD_PATH_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} not launched on the multi-shard path")
+    print(f"  launches on the multi-shard path: {launches}; path "
+          f"{time.perf_counter() - t_start:.2f} s")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    overhead = sharding_overhead(search)
+    dist_vs_single(dist, ring)
+    return dict(launches=launches, query_ms=search["query_ms"], **overhead)
+
+
+def sharded_search(docs: np.ndarray, queries: np.ndarray) -> dict:
+    """BASELINE config 5 on the card: a sharded store, 8 exact queries."""
+    rt = FheRuntime(PRESET, device=DEVICE)
+    rt.generate_keys(seed=0)
+    ctx, sk = rt.ctx, rt.keys.sk
+    n = len(docs)
+    t0 = time.perf_counter()
+    store = torch.empty((n, 2, ctx.n_limbs, ctx.n), dtype=torch.uint32, device=DEVICE)
+    for i in range(0, n, ENC_BATCH):
+        store[i: i + ENC_BATCH] = rt.encrypt_vector(docs[i: i + ENC_BATCH], seed=1 + i).data
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    packed = pack.pack_ciphertexts(ctx, store, DIM, ctx.n_limbs)
+    del store
+    ct = arith.mod_switch_to(ctx, Ciphertext(packed, ctx.n_limbs), 2)
+    doc_op = pack.make_packed_doc_operand(ctx, ct.data, ct.level, pad_groups_to=PAD_GROUPS)
+    slots = pack.slots_per_ct(ctx.n, DIM)
+    real_groups = doc_op.n_groups or doc_op.groups
+    check(real_groups == -(-n // slots) and doc_op.groups % N_SHARDS == 0,
+          f"{real_groups} groups padded to {doc_op.groups}")
+    mesh = make_mesh(N_SHARDS, (N_SHARDS, 1), DEVICE)
+    doc_shards = shard(mesh, doc_op.digits, PACKED_OPERAND_SPEC)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"  store: {n} ciphertexts encrypted in {t_enc:.3f} s; packed into "
+          f"{real_groups} groups padded to {doc_op.groups}, "
+          f"{doc_op.groups // N_SHARDS} per shard, in {t_build:.3f} s")
+    print(f"  shards of the (dp={N_SHARDS}, tp=1) mesh on: "
+          + ", ".join(f"{i}:{dev}" for i, dev in enumerate(mesh.devices)))
+
+    step = make_sharded_packed_search(ctx, mesh, DIM, top_k=TOP_K, pt_corr=ct.pt_corr,
+                                      n_docs=n)
+    want_all = docs.astype(np.int64) @ queries.astype(np.int64).T
+    lat = []
+    for qi, query in enumerate(queries):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_op = pack.make_packed_query_operand(ctx, sk, torch.from_numpy(query), DIM, ct.level)
+        scores, vals, idx = step(doc_shards, q_op.digits)
+        vals, idx = vals.cpu().numpy().astype(np.int64), idx.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        got = scores.cpu().numpy().astype(np.int64)
+        want = want_all[:, qi]
+        check(got.shape == (doc_op.groups * slots,), f"query {qi}: {got.shape} scores")
+        check((got[:n] == want).all() and (got[n:] == 0).all(),
+              f"query {qi}: {(got[:n] != want).sum()} scores differ from docs @ query")
+        check(sorted(vals.tolist()) == sorted(np.sort(want)[-TOP_K:].tolist()),
+              f"query {qi}: top-{TOP_K} scores differ from the oracle's")
+        check((idx < n).all() and (want[idx] == vals).all(),
+              f"query {qi}: top-{TOP_K} indices do not point at their scores")
+    q_ms = statistics.median(lat[1:]) * 1e3
+    print(f"  {len(queries)} queries exact (scores == docs @ query, pad slots 0, top-{TOP_K} "
+          f"values and indices); query latency (operand + sharded step + top-{TOP_K} to "
+          f"the host, host clock, median of {len(queries) - 1} after the first) {q_ms:.3f} ms = "
+          f"{n / (q_ms / 1e3):.4g} docs/s; first query {lat[0] * 1e3:.3f} ms")
+    return dict(ctx=ctx, step=step, doc_shards=doc_shards, q_digits=q_op.digits,
+                query_ms=q_ms)
+
+
+def sharding_overhead(search: dict) -> dict:
+    """The 8-shard step against one shard holding 1/8 of the store (one-shard mesh)."""
+    ctx, shards, qd = search["ctx"], search["doc_shards"], search["q_digits"]
+    one_mesh = make_mesh(1, (1, 1), DEVICE)
+    step1 = make_sharded_packed_search(ctx, one_mesh, DIM, top_k=TOP_K)
+    ms_n = host_ms(lambda: search["step"](shards, qd)[1].cpu())
+    ms_1 = host_ms(lambda: step1(shards[:1], qd)[1].cpu())
+    dev_n = cuda_ms(lambda: search["step"](shards, qd))
+    dev_1 = cuda_ms(lambda: step1(shards[:1], qd))
+    ratio = ms_n / (N_SHARDS * ms_1)
+    print(f"  search step (scores, per-shard top-{TOP_K}, merge; host clock, median of 10): "
+          f"{N_SHARDS} shards {ms_n:.3f} ms, 1 shard of 1/{N_SHARDS} the store {ms_1:.3f} ms, "
+          f"sharding_overhead_vs_serial {ratio:.3f}; CUDA events {dev_n:.3f} / {dev_1:.3f} ms")
+    device_view(lambda i: search["step"](shards, qd)[1].cpu(), N_QUERIES, "sharded step")
+    return dict(step_ms=ms_n, one_shard_ms=ms_1, sharding_overhead_vs_serial=ratio)
+
+
+def ring_ntt_case(rng) -> dict:
+    """Ring-16384 inputs and their single-card K2 products, made before the counted path."""
+    params = get_params(RING)
+    primes, n = params.primes, params.n
+    l = len(primes)
+    splan = build_plan(n, primes, DEVICE)
+    mc = [pr.mont_constants(p) for p in primes]
+    col = [torch.tensor(np.asarray(v, dtype=np.uint32)[:, None], device=DEVICE)
+           for v in (primes, [c["p_neg_inv"] for c in mc], [c["r2_mod_p"] for c in mc])]
+
+    def poly():
+        return ring_shards(rng, 1, (l, n))[0]
+
+    def product(a, b):              # a * b in the NTT domain
+        p, pinv, r2 = (c.reshape((l,) + (1,) * (a.dim() - 1)).to(a.device) for c in col)
+        return mont_mul(a, to_mont(b, p, pinv, r2), p, pinv)
+
+    xs = [poly() for _ in range(4)]
+    pairs = [(poly(), poly()) for _ in range(2)]
+    wants = [ntt_cuda.ntt_inv(splan, product(ntt_cuda.ntt_fwd(splan, a),
+                                             ntt_cuda.ntt_fwd(splan, b)))
+             for a, b in pairs]
+    return dict(primes=primes, n=n, l=l, splan=splan, xs=xs, pairs=pairs, wants=wants,
+                product=product)
+
+
+def ring_sharded_ntt(case: dict) -> dict:
+    """Four-step NTT on N_SHARDS sp shards: round trips, and products equal to one card's."""
+    n, l = case["n"], case["l"]
+    n2 = n // RING_N1
+    sp = make_mesh(N_SHARDS, (N_SHARDS,), DEVICE, axes=(SP_AXIS,))
+    t0 = time.perf_counter()
+    plan = build_dist_plan(n, case["primes"], n1=RING_N1, device=DEVICE)
+    fwd, inv = make_dist_ntt(plan, sp)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+
+    def rows(x):
+        return shard(sp, x.reshape(l, RING_N1, n2), ROW_SPEC)
+
+    def whole(parts):
+        return gather(sp, parts, ROW_SPEC).reshape(l, n)
+
+    for x in case["xs"]:
+        check(max_abs_err(whole(inv(fwd(rows(x)))), x) == 0, "distributed NTT round trip")
+    for (a, b), want in zip(case["pairs"], case["wants"]):
+        fc = [case["product"](u, v) for u, v in zip(fwd(rows(a)), fwd(rows(b)))]
+        check(max_abs_err(whole(inv(fc)), want) == 0,
+              "distributed NTT product differs from the single-card NTT's")
+    print(f"  {RING} (N={n}, L={l}, N1=N2={RING_N1}) on {N_SHARDS} sp shards: "
+          f"{len(case['xs'])} round trips exact, {len(case['pairs'])} products == single-card "
+          f"K2 products; plan {t_plan:.2f} s")
+    return dict(fwd=fwd, rows=rows)
+
+
+def dist_vs_single(dist: dict, case: dict) -> None:
+    x = case["xs"][0]
+    parts = dist["rows"](x)
+    ms_d = cuda_ms(lambda: dist["fwd"](parts))
+    host_d = host_ms(lambda: dist["fwd"](parts))
+    ms_s = cuda_ms(lambda: ntt_cuda.ntt_fwd(case["splan"], x))
+    print(f"  forward NTT of one (L={case['l']}, N={case['n']}) polynomial: distributed over "
+          f"{N_SHARDS} shards {ms_d:.4f} ms (CUDA events; host clock {host_d:.4f} ms), "
+          f"single-card K2 {ms_s:.4f} ms")
+
+
+def cross_card(rng) -> None:
+    """The shards spread over every visible card: K3 through peer pointers.
+
+    Runs only where more than one card is visible (skipped on one card):
+    K3 against its plain version across cards, the ring-16384 four-step
+    NTT across cards against the single-card K2, a sharded packed search
+    across cards against docs @ query, and K3's times beside the NVLink
+    bound.
+    """
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"== cross-card exchange: skipped ({cards} card visible)")
+        return
+    phase(f"cross-card exchange: {N_SHARDS} shards round-robin on {cards} cards")
+    sp = make_mesh(N_SHARDS, (N_SHARDS,), DEVICE, axes=(SP_AXIS,))
+    print("  shards on: " + ", ".join(f"{i}:{dev}" for i, dev in enumerate(sp.devices)))
+    n_l, n2 = len(get_params(RING).primes), get_params(RING).n // RING_N1
+    for shape, split, concat in (((n_l, RING_N1 // N_SHARDS, n2), 2, 1),
+                                 ((n_l, RING_N1, n2 // N_SHARDS), 1, 2), ((3, 8, 5), 1, 2)):
+        xs = [x.to(dev) for x, dev in zip(ring_shards(rng, N_SHARDS, shape), sp.devices)]
+        got = ici.all_to_all(xs, split, concat)
+        want = ici.all_to_all_ref(xs, split, concat)
+        check(all(g.device == x.device for g, x in zip(got, xs)), "outputs left their cards")
+        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        check(e == 0, f"cross-card all_to_all {shape} split {split}: {e}")
+    print("  all_to_all across cards at both ring-16384 exchanges and an odd chunk: bit-exact")
+    case = ring_ntt_case(rng)
+    ring_sharded_ntt(case)
+    sharded_search(quantized_unit(rng, (8000, DIM)), quantized_unit(rng, (2, DIM)))
+    time_exchange(random_flats(sp.devices, n2, n_l * RING_N1 // N_SHARDS),
+                  f"at the {RING} exchange")
+    time_exchange(random_flats(sp.devices, 2048, 4096), "at 256 MiB")
 
 
 def bound(byts: float, ops: float, ops_per_s: float) -> tuple:
@@ -387,6 +711,8 @@ def timings(rng, errs: dict, launches: dict, smi: str) -> list:
           f"{byts / 2 ** 20:.1f} MiB, {ops / 1e9:.2f} G int8 ops)")
     out.append(dict(name="pack_score", ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
                     library_ms=lib))
+    out += cyclic_timings(rng)
+    out.append(all_to_all_timings())
     for row in out:
         src, rep = KERNELS[row["name"]]
         row.update(route="cuda", source=src, replaces=rep,
@@ -394,12 +720,130 @@ def timings(rng, errs: dict, launches: dict, smi: str) -> list:
     return out
 
 
+def cyclic_timings(rng) -> list:
+    """The cyclic entry at one shard's column (and row) transform of the ring-16384 NTT."""
+    primes = get_params(RING).primes
+    n, l = RING_N1, len(primes)
+    plan = build_plan(n, primes, DEVICE)
+    rows = get_params(RING).n // RING_N1 // N_SHARDS * l
+    x = random_residues(rng, plan, (rows // l, l, n))
+    # Each row read and written once, plus the stage twiddles and companions
+    # (2N words a limb); three 32-bit multiplies per butterfly.
+    bound_ms, kind, why = bound(2 * rows * n * 4 + l * 2 * n * 4,
+                                3 * rows * (n // 2 * plan.log_n), INT32_MUL_PER_S)
+    out = []
+    for name, kern, ref, symbol in (
+            ("ntt_cyclic_fwd", ntt_cuda.cyclic_fwd, ntt_cuda.cyclic_fwd_ref,
+             "ntt_fwd_kernel<false>"),
+            ("ntt_cyclic_inv", ntt_cuda.cyclic_inv, ntt_cuda.cyclic_inv_ref,
+             "ntt_inv_kernel<false>")):
+        ms = cuda_ms(lambda: kern(plan, x), reps=50)
+        plain = cuda_ms(lambda: ref(plan, x), reps=10)
+        dev = device_us_per_launch(lambda: kern(plan, x), symbol)
+        print(f"  {name} {rows} rows x N={n} (one shard's transform at {RING}): {ms:.4f} ms "
+              f"(CUDA events around the wrapper; device time per launch {fmt_us(dev)}); "
+              f"plain {plain:.3f} ms; bound {bound_ms:.5f} ms ({why})")
+        out.append(dict(name=name, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
+                        library_ms=None))
+    return out
+
+
+def device_us_per_launch(fn, kernel: str, calls: int = 10):
+    """Device time of one launch of `kernel` (torch.profiler), or None if not recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    return statistics.median(spans) if spans else None
+
+
+def fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
+def exchange_bound(flats) -> tuple:
+    """(ms, kind, text): each element read once and written once on its card,
+    and the off-card share over NVLink at 450 GB/s each way per card."""
+    d = len(flats)
+    chunk = flats[0].numel() // d * 4
+    hbm, sent, recv = {}, {}, {}
+    for s, x in enumerate(flats):
+        hbm[x.device] = hbm.get(x.device, 0) + 2 * d * chunk      # its input and its output
+        for j, y in enumerate(flats):
+            if y.device != x.device:
+                sent[x.device] = sent.get(x.device, 0) + chunk
+                recv[y.device] = recv.get(y.device, 0) + chunk
+    t_hbm = max(hbm.values()) / HBM_BYTES_PER_S * 1e3
+    t_link = max([max(sent.get(c, 0), recv.get(c, 0)) for c in hbm]) / NVLINK_BYTES_PER_S * 1e3
+    return (max(t_hbm, t_link), "bytes",
+            f"set by bytes: device memory {t_hbm:.5f} ms, NVLink {t_link:.5f} ms")
+
+
+def time_exchange(flats, label: str) -> dict:
+    """The kernel, its plain version and one strided copy_ on the same shards."""
+    d = len(flats)
+    rows, w = flats[0].shape
+    ms = cuda_ms(lambda: ici.exchange(flats), reps=20)
+    plain = cuda_ms(lambda: ici.all_to_all_ref(flats, 0, 0), reps=10)
+    lib = None
+    if len({x.device for x in flats}) == 1:
+        # One copy_ from the stacked input's transposed (D, D, c, W) view;
+        # the stacking is not timed.  int32 views: the same bits.
+        inp = torch.stack(flats).view(torch.int32).view(d, d, rows // d, w)
+        res = torch.empty_like(inp)
+        lib = cuda_ms(lambda: res.copy_(inp.transpose(0, 1)), reps=20)
+        got = ici.exchange(flats)
+        check(all(max_abs_err(res[j].reshape(rows, w).view(torch.uint32), got[j]) == 0
+                  for j in range(d)), "the yardstick copy_ computes another function")
+    bound_ms, kind, why = exchange_bound(flats)
+    total = sum(x.numel() for x in flats) * 4
+    dev = device_us_per_launch(lambda: ici.exchange(flats), "all_to_all_kernel")
+    print(f"  all_to_all {label}: {d} shards x ({rows}, {w}) uint32, {total / 2 ** 20:.2f} MiB on "
+          f"{len({x.device for x in flats})} card(s): {ms:.4f} ms ({d} launches, "
+          f"{2 * total / ms / 1e9:.3f} TB/s read + written; device time per launch "
+          f"{fmt_us(dev)}); "
+          f"plain {plain:.4f} ms; copy_ "
+          + ("n/a (shards on several cards)" if lib is None else f"{lib:.4f} ms")
+          + f"; bound {bound_ms:.5f} ms ({why})")
+    return dict(name="all_to_all", ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
+                library_ms=lib)
+
+
+def all_to_all_timings() -> dict:
+    """K3 at the ring-16384 exchange (the path's shape, in the JSON line) and at 256 MiB."""
+    mesh = make_mesh(N_SHARDS, (N_SHARDS,), DEVICE, axes=(SP_AXIS,))
+    l, n2 = len(get_params(RING).primes), get_params(RING).n // RING_N1
+    # The first exchange of the forward transform: (L, N1/D, N2) shards with
+    # the split axis N2 moved to the front, (N2, L * N1/D).
+    path = time_exchange(random_flats(mesh.devices, n2, l * RING_N1 // N_SHARDS),
+                         f"at the {RING} exchange")
+    xs = [x.reshape(l, RING_N1 // N_SHARDS, n2)
+          for x in random_flats(mesh.devices, l * RING_N1 // N_SHARDS, n2)]
+    ms = cuda_ms(lambda: ici.all_to_all(xs, 2, 1), reps=20)
+    print(f"  all_to_all with its reshapes (the path's call, rows -> columns): {ms:.4f} ms")
+    time_exchange(random_flats(mesh.devices, 2048, 4096), "at 256 MiB")
+    return path
+
+
 def main() -> None:
     smi = device_and_build()
     rng = np.random.default_rng(0)
     errs = kernels_vs_plain(rng)
     run = main_path(rng)
-    rows = timings(rng, errs, run["launches"], smi)
+    # The main path's store went with its frame; return its memory before
+    # the multi-shard path builds its own.
+    torch.cuda.empty_cache()
+    shard_run = multi_shard_path(rng)
+    cross_card(rng)
+    launches = {**run["launches"],
+                **{k: shard_run["launches"].get(k, 0) for k in ("all_to_all", "ntt_cyclic_fwd",
+                                                                "ntt_cyclic_inv")}}
+    rows = timings(rng, errs, launches, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

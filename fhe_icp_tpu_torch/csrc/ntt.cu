@@ -13,6 +13,14 @@
 // and all stages: device memory sees one read and one write per
 // coefficient, and the twiddle tables (4N words per limb) stay in L2.
 //
+// The cyclic entries (fhe_ntt_cyclic_fwd / _inv) run the same kernels
+// without the twist and untwist multiply: the size-N cyclic DIF / DIT
+// stages alone, unscaled, as the JAX package's ops/ntt.py::_cyclic_fwd and
+// ::_cyclic_inv compute them.  The four-step ring-sharded NTT
+// (parallel/ntt_dist.py) runs its column and row transforms through them
+// at N = N1 and N2 (128 at ring 16384, 16 in the smallest tests); below
+// N = 64 some of the block's 32 threads idle in every stage.
+//
 // Layout: x is (rows, N) uint32 with rows = batch * L; row r holds limb
 // r % L.  table is (L_plan, 4N): [twist | twist Shoup | stage twiddles |
 // their Shoup companions], stage s at offset N - (N >> s) of the last two
@@ -29,6 +37,7 @@ namespace {
 
 constexpr int kThreads = 512;
 
+template <bool kTwist>
 __global__ void ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                                const uint32_t* __restrict__ table,
                                const uint32_t* __restrict__ primes, int L, int n,
@@ -44,7 +53,7 @@ __global__ void ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restr
   const uint32_t* src = x + static_cast<size_t>(row) * n;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    buf[i] = fhe::shoup_mul(src[i], psi[i], psi_sh[i], p);
+    buf[i] = kTwist ? fhe::shoup_mul(src[i], psi[i], psi_sh[i], p) : src[i];
   __syncthreads();
 
   const int half = n >> 1;
@@ -66,6 +75,7 @@ __global__ void ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restr
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = buf[i];
 }
 
+template <bool kTwist>
 __global__ void ntt_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                                const uint32_t* __restrict__ table,
                                const uint32_t* __restrict__ primes, int L, int n,
@@ -101,7 +111,7 @@ __global__ void ntt_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restr
 
   uint32_t* dst = y + static_cast<size_t>(row) * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = fhe::shoup_mul(buf[i], ipsi[i], ipsi_sh[i], p);
+    dst[i] = kTwist ? fhe::shoup_mul(buf[i], ipsi[i], ipsi_sh[i], p) : buf[i];
 }
 
 template <typename Kernel>
@@ -127,12 +137,22 @@ extern "C" {
 
 int fhe_ntt_fwd(const void* x, void* y, const void* table, const void* primes, int rows,
                 int L, int n, int log_n, void* stream) {
-  return launch(ntt_fwd_kernel, x, y, table, primes, rows, L, n, log_n, stream);
+  return launch(ntt_fwd_kernel<true>, x, y, table, primes, rows, L, n, log_n, stream);
 }
 
 int fhe_ntt_inv(const void* x, void* y, const void* table, const void* primes, int rows,
                 int L, int n, int log_n, void* stream) {
-  return launch(ntt_inv_kernel, x, y, table, primes, rows, L, n, log_n, stream);
+  return launch(ntt_inv_kernel<true>, x, y, table, primes, rows, L, n, log_n, stream);
+}
+
+int fhe_ntt_cyclic_fwd(const void* x, void* y, const void* table, const void* primes,
+                       int rows, int L, int n, int log_n, void* stream) {
+  return launch(ntt_fwd_kernel<false>, x, y, table, primes, rows, L, n, log_n, stream);
+}
+
+int fhe_ntt_cyclic_inv(const void* x, void* y, const void* table, const void* primes,
+                       int rows, int L, int n, int log_n, void* stream) {
+  return launch(ntt_inv_kernel<false>, x, y, table, primes, rows, L, n, log_n, stream);
 }
 
 const char* fhe_error_string(int err) {

@@ -14,6 +14,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .devices import target
 from .ops.cipher import Ciphertext, KeySet, PublicKey, SecretKey
 from .ops.context import CryptoContext
 
@@ -56,8 +57,10 @@ def keys_to_arrays(keys: KeySet) -> Dict[str, np.ndarray]:
 
 
 def ciphertext_from_array(data: np.ndarray, level: int, pt_corr: int = 1,
-                          device: torch.device | str = "cpu") -> Ciphertext:
-    """A port Ciphertext from (..., k, L, N) uint32 NTT-domain data."""
+                          device: torch.device | str = "cuda") -> Ciphertext:
+    """A port Ciphertext from (..., k, L, N) uint32 NTT-domain data, on the card
+    unless `device` names another."""
+    device = target(device, "ciphertext_from_array")
     if np.ndim(data) < 3 or np.shape(data)[-2] != level:
         raise ValueError(f"ciphertext data {np.shape(data)} does not hold "
                          f"{level} limbs on axis -2")

@@ -9,16 +9,18 @@ only when a source is newer than the library.
 
 Each C entry point launches one kernel on the stream it is given and
 returns `cudaGetLastError()`; `check` raises on anything but 0, so a
-refused launch never passes silently.
+refused launch never passes silently.  Wrappers launch inside
+`launch_on(device)`, which makes the tensor's card current.
 
 `launches` counts, per kernel, the launches made by the wrappers in
-`ops/ntt_cuda.py` and `ops/pack_cuda.py`; it lets a caller show that a
-run went through the kernels.
+`ops/ntt_cuda.py`, `ops/pack_cuda.py` and `parallel/ici.py`; it lets a
+caller show that a run went through the kernels.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -33,12 +35,16 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as c_void_p).
 _SIGNATURES = {
     "fhe_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fhe_ntt_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fhe_ntt_cyclic_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fhe_ntt_cyclic_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fhe_pack_score": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fhe_all_to_all": [_P, _P, _I, _L, _I, _P],
+    "fhe_enable_peer_access": [_I, _I],
 }
 
 launches: collections.Counter = collections.Counter()
@@ -112,7 +118,14 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
-def stream_ptr(device) -> int:
-    """The current CUDA stream of `device`, as an integer handle."""
+@contextlib.contextmanager
+def launch_on(device):
+    """Make `device` current for a launch; yields its current stream's handle.
+
+    The default stream's handle is 0, which CUDA reads as the default
+    stream of whichever device is current: a launch for a tensor on another
+    card than the current one must make that card current first.
+    """
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

@@ -1,18 +1,35 @@
-"""Modulus switching of NTT-domain ciphertexts.
+"""Plaintext products and modulus switching of NTT-domain ciphertexts.
 
-Only the dropped limb leaves the NTT domain: its coefficient form gives
-the rounding correction delta, which is transformed forward over the
-remaining limbs, so a switch costs l transforms per polynomial.
+`plain_to_eval` turns a clear polynomial into the NTT-domain Montgomery
+operand that `mul_plain` multiplies pointwise into a ciphertext.
+
+In `mod_switch` only the dropped limb leaves the NTT domain: its
+coefficient form gives the rounding correction delta, which is
+transformed forward over the remaining limbs, so a switch costs l
+transforms per polynomial.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cipher import Ciphertext
+from .cipher import Ciphertext, centered_residues
 from .context import CryptoContext
-from .modmath import barrett_reduce, i64, mont_mul, sub_mod, u32
+from .modmath import barrett_reduce, i64, mont_mul, sub_mod, to_mont, u32
 from .ntt import NttPlan, build_plan, ntt_fwd, ntt_inv
+
+
+def plain_to_eval(ctx: CryptoContext, pt: torch.Tensor, l: int) -> torch.Tensor:
+    """int32 poly (..., N), |pt| < t/2 -> NTT-domain Montgomery operand (..., l, N)."""
+    res = centered_residues(ctx, pt, l)
+    return to_mont(ntt_fwd(ctx.plan, res), ctx.lp(l), ctx.lpinv(l), ctx.lr2(l))
+
+
+def mul_plain(ctx: CryptoContext, a: Ciphertext, pt_eval: torch.Tensor) -> Ciphertext:
+    """ct * pt with pt already in eval (NTT + Montgomery) form."""
+    l = a.level
+    out = mont_mul(a.data, pt_eval[..., None, :, :], ctx.lp(l), ctx.lpinv(l))
+    return Ciphertext(out, l, True, a.pt_corr)
 
 
 def _single_prime_plan(ctx: CryptoContext, prime: int) -> NttPlan:

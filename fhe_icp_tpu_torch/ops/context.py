@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..devices import target
 from . import primes as pr
 from .ntt import NttPlan, build_plan
 from .params import CryptoParams
@@ -46,11 +47,15 @@ class LevelTables:
 
 
 class CryptoContext:
-    """All device tables for one CryptoParams preset, on one device."""
+    """All device tables for one CryptoParams preset, on one device.
 
-    def __init__(self, params: CryptoParams, device: torch.device | str = "cpu"):
+    The device is the card unless the caller asks for another; without
+    CUDA the default raises.
+    """
+
+    def __init__(self, params: CryptoParams, device: torch.device | str = "cuda"):
         self.params = params
-        self.device = torch.device(device)
+        self.device = target(device, "CryptoContext")
         self.cache: Dict = {}          # derived tables (see cipher.py, pack.py)
         self.n = params.n
         self.t = params.t

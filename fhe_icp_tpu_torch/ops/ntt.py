@@ -16,19 +16,21 @@ integers.
 
 For a CUDA tensor `ntt_fwd`/`ntt_inv` run the fused kernel of
 `csrc/ntt.cu` (`ops/ntt_cuda.py`); for a CPU tensor they run its plain
-version.
+version.  `cyclic_fwd`/`cyclic_inv` are the cyclic stages alone, on the
+same kernel, for the four-step ring-sharded NTT (`parallel/ntt_dist.py`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..devices import target
 from . import primes as pr
-from .ntt_cuda import ntt_fwd, ntt_inv  # noqa: F401  (the public transforms)
+from .ntt_cuda import cyclic_fwd, cyclic_inv, ntt_fwd, ntt_inv  # noqa: F401  (public)
 
 
 @dataclass(frozen=True)
@@ -65,6 +67,20 @@ class NttPlan:
     def device(self) -> torch.device:
         return self.p.device
 
+    def to(self, device: torch.device | str) -> "NttPlan":
+        """The same tables on `device` (this plan itself if already there)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+
+        def move(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(device)
+            if isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
+                return tuple(t.to(device) for t in v)
+            return v
+        return NttPlan(**{f.name: move(getattr(self, f.name)) for f in fields(self)})
+
 
 def _u32(a) -> np.ndarray:
     return np.asarray(a, dtype=np.uint32)
@@ -81,8 +97,12 @@ def _kernel_table(twist, twist_sh, stages, stages_sh, n: int) -> np.ndarray:
 
 
 def build_plan(n: int, prime_list: Tuple[int, ...],
-               device: torch.device | str = "cpu") -> NttPlan:
-    """Build twiddle tables host-side with exact big-int arithmetic."""
+               device: torch.device | str = "cuda") -> NttPlan:
+    """Build twiddle tables host-side with exact big-int arithmetic.
+
+    The tables go to the card unless `device` names another.
+    """
+    device = target(device, "build_plan")
     assert n & (n - 1) == 0, "N must be a power of two"
     log_n = n.bit_length() - 1
     fw_tw = [[] for _ in range(log_n)]

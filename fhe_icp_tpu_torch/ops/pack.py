@@ -17,6 +17,7 @@ one kernel (`ops/pack_cuda.py`, `csrc/pack_score.cu`).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -127,25 +128,42 @@ def packed_coeff_weights(ctx: CryptoContext, d: int, slots: int, l: int) -> torc
 class PackedDocOperand:
     """Digit planes of packed ciphertexts: (L, G*4, 2N) int8, group-major.
 
-    Row g*4 + i is digit plane i of packed group g.
+    Row g*4 + i is digit plane i of packed group g, so a split of the rows
+    over shards keeps whole groups together.  `n_groups` is the group
+    count before padding (None when there is none): a ranking over the
+    scores must leave the zero-scoring pad slots out.
     """
 
     digits: torch.Tensor
     level: int
+    n_groups: Optional[int] = None
 
     @property
     def groups(self) -> int:
         return self.digits.shape[1] // N_DIGITS
 
+    def real_docs(self, slots: int) -> int:
+        """Upper bound on real documents: pre-pad groups x slots."""
+        return (self.n_groups if self.n_groups is not None else self.groups) * slots
 
-def make_packed_doc_operand(ctx: CryptoContext, ct_data: torch.Tensor,
-                            level: int) -> PackedDocOperand:
-    """(G, 2, L, N) uint32 packed ciphertexts -> int8 digit planes."""
+
+def make_packed_doc_operand(ctx: CryptoContext, ct_data: torch.Tensor, level: int,
+                            pad_groups_to: int = 1) -> PackedDocOperand:
+    """(G, 2, L, N) uint32 packed ciphertexts -> int8 digit planes.
+
+    `pad_groups_to` rounds the group count up with zero ciphertexts, which
+    score exactly 0, so that the groups divide over the shards of a mesh.
+    A zero ciphertext's digits are zero, so the padding is added to the
+    int8 digits directly.
+    """
     g = ct_data.shape[0]
     a = ct_data.movedim(1, -2).reshape(g, level, 2 * ctx.n)       # (G, L, 2N)
     dig = balanced_digits(center_residues(a, ctx.p[:level]))     # (G, L, 2N, 4)
-    dig = dig.permute(1, 0, 3, 2).reshape(level, g * N_DIGITS, 2 * ctx.n)
-    return PackedDocOperand(dig.contiguous(), level)
+    extra = -g % pad_groups_to
+    if extra:
+        dig = torch.cat([dig, dig.new_zeros((extra,) + tuple(dig.shape[1:]))])
+    dig = dig.permute(1, 0, 3, 2).reshape(level, (g + extra) * N_DIGITS, 2 * ctx.n)
+    return PackedDocOperand(dig.contiguous(), level, g if extra else None)
 
 
 @dataclass(frozen=True)

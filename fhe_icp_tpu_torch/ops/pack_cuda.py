@@ -108,9 +108,9 @@ def packed_score_residues(ctx: CryptoContext, a: torch.Tensor, v: torch.Tensor,
     if g == 0:
         return out
     lib = kernels.load()
-    err = lib.fhe_pack_score(a.data_ptr(), vt.data_ptr(), w.data_ptr(),
-                             tab.data_ptr(), out.data_ptr(), l, g, k, slots,
-                             kernels.stream_ptr(a.device))
+    with kernels.launch_on(a.device) as stream:
+        err = lib.fhe_pack_score(a.data_ptr(), vt.data_ptr(), w.data_ptr(),
+                                 tab.data_ptr(), out.data_ptr(), l, g, k, slots, stream)
     kernels.check(err, "pack_score")
     kernels.launches["pack_score"] += 1
     return out

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..devices import target
 from . import arith
 from .cipher import Ciphertext, KeySet, decrypt, encrypt_sym, keygen
 from .context import CryptoContext
@@ -34,10 +35,7 @@ class FheRuntime:
 
     def __init__(self, params: CryptoParams | str, keys: Optional[KeySet] = None,
                  device: torch.device | str = "cuda"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("FheRuntime runs on a CUDA device and none is "
-                               "available; pass device='cpu' to run on the CPU")
+        device = target(device, "FheRuntime")
         if isinstance(params, str):
             params = get_params(params)
         self.params = params

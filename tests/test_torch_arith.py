@@ -23,7 +23,8 @@ PRESET = "test-512-mult"
 
 @functools.lru_cache(maxsize=None)
 def _setup():
-    jctx, tctx = JaxContext(jax_params(PRESET)), CryptoContext(get_params(PRESET))
+    jctx = JaxContext(jax_params(PRESET))
+    tctx = CryptoContext(get_params(PRESET), device="cpu")
     jks = jax.jit(lambda k: jc.keygen(jctx, k, rlk_levels=[]))(jax.random.PRNGKey(0))
     tks = interop.keys_from_arrays(tctx, {
         "s": np.asarray(jks.sk.s), "s_ntt_mont": np.asarray(jks.sk.s_ntt_mont),
@@ -42,11 +43,11 @@ def test_mod_switch_to_matches_jax(target):
     if jctx.q_at(target) < 4 * jctx.t * jctx.n:
         with pytest.raises(ValueError, match="headroom"):
             ta.mod_switch_to(tctx, interop.ciphertext_from_array(
-                np.asarray(jct.data), jct.level), target)
+                np.asarray(jct.data), jct.level, device="cpu"), target)
         return
     want = jax.jit(lambda c: ja.mod_switch_to(jctx, c, target))(jct)
-    got = ta.mod_switch_to(tctx, interop.ciphertext_from_array(np.asarray(jct.data), jct.level),
-                           target)
+    ct = interop.ciphertext_from_array(np.asarray(jct.data), jct.level, device="cpu")
+    got = ta.mod_switch_to(tctx, ct, target)
     assert (got.level, got.pt_corr) == (want.level, want.pt_corr)
     assert got.pt_corr != 1
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
@@ -55,7 +56,7 @@ def test_mod_switch_to_matches_jax(target):
 
 def test_mod_switch_one_step_and_noop():
     jctx, tctx, _, tks, m, jct = _setup()
-    ct = interop.ciphertext_from_array(np.asarray(jct.data), jct.level)
+    ct = interop.ciphertext_from_array(np.asarray(jct.data), jct.level, device="cpu")
     want = jax.jit(lambda c: ja.mod_switch(jctx, c))(jct)
     got = ta.mod_switch(tctx, ct)
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))

@@ -25,7 +25,7 @@ from fhe_icp_tpu_torch.ops.params import get_params
 
 @functools.lru_cache(maxsize=None)
 def _ctxs(preset):
-    return JaxContext(jax_params(preset)), CryptoContext(get_params(preset))
+    return JaxContext(jax_params(preset)), CryptoContext(get_params(preset), device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,7 +90,7 @@ def test_cross_decryption():
     jct = jax.jit(lambda sk, k, mm: jc.encrypt_sym(jctx, sk, k, mm))(
         jks.sk, jax.random.PRNGKey(3), jnp.asarray(m))
     data, level, corr = np.asarray(jct.data), jct.level, jct.pt_corr
-    tct = interop.ciphertext_from_array(data, level, corr)
+    tct = interop.ciphertext_from_array(data, level, corr, device="cpu")
     _eq(tc.decrypt(tctx, tks.sk, tct), m)
     # The port encrypts with its own generator, JAX decrypts.
     gen = torch.Generator().manual_seed(4)
@@ -140,7 +140,7 @@ def test_decrypt_coeff_matches_jax():
     m = _messages(jctx, (3,), seed=7)
     jct = jax.jit(lambda sk, k, mm: jc.encrypt_sym(jctx, sk, k, mm))(
         jks.sk, jax.random.PRNGKey(8), jnp.asarray(m))
-    tct = interop.ciphertext_from_array(np.asarray(jct.data), jct.level)
+    tct = interop.ciphertext_from_array(np.asarray(jct.data), jct.level, device="cpu")
     for j in (0, 127, jctx.n - 1):
         want = jax.jit(lambda sk, d: jc.decrypt_coeff(
             jctx, sk, jc.Ciphertext(d, 2, True, 1), j))(jks.sk, jct.data)

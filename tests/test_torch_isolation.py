@@ -48,15 +48,48 @@ def test_runtime_defaults_to_the_card():
     assert FheRuntime("test-512", device="cpu").ctx.p.device.type == "cpu"
 
 
+def _entry_points():
+    """Each entry point that builds on a device, called with its default device."""
+    import numpy as np
+    from fhe_icp_tpu_torch import entry, interop
+    from fhe_icp_tpu_torch.ops.context import CryptoContext
+    from fhe_icp_tpu_torch.ops.ntt import build_plan
+    from fhe_icp_tpu_torch.ops.params import get_params
+    from fhe_icp_tpu_torch.parallel.mesh import make_mesh
+    from fhe_icp_tpu_torch.parallel.ntt_dist import build_dist_plan
+    return {
+        "CryptoContext": lambda: CryptoContext(get_params("test-512")).device,
+        "build_plan": lambda: build_plan(16, (12289,)).device,
+        "ciphertext_from_array": lambda: interop.ciphertext_from_array(
+            np.zeros((2, 2, 512), np.uint32), 2).data.device,
+        "make_mesh": lambda: make_mesh(2).devices[0],
+        "build_dist_plan": lambda: build_dist_plan(256, (12289,), 16).psi.device,
+        "dryrun_multichip": lambda: entry.dryrun_multichip(2),
+    }
+
+
+@pytest.mark.parametrize("name", ["CryptoContext", "build_plan", "ciphertext_from_array",
+                                  "make_mesh", "build_dist_plan", "dryrun_multichip"])
+def test_entry_points_default_to_the_card(name):
+    """Without CUDA the default device raises, naming CUDA; it never runs on the CPU."""
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        dev = call()
+        assert dev is None or dev.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_kernel_wrappers_refuse_other_devices():
     """A wrapper takes the plain version only for CPU tensors."""
     from fhe_icp_tpu_torch.ops import ntt_cuda, pack_cuda
     from fhe_icp_tpu_torch.ops.context import CryptoContext
     from fhe_icp_tpu_torch.ops.params import get_params
-    ctx = CryptoContext(get_params("test-512"))
+    ctx = CryptoContext(get_params("test-512"), device="cpu")
     x = torch.zeros((2, ctx.n), dtype=torch.uint32, device="meta")
     with pytest.raises(ValueError):
-        ntt_cuda._launch(ctx.plan, x, forward=True)
+        ntt_cuda._launch(ctx.plan, x, "ntt_fwd")
     a = torch.zeros((2, 4, 2 * ctx.n), dtype=torch.int8, device="meta")
     v = torch.zeros((2, 2 * ctx.n, 16), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError):

@@ -24,7 +24,7 @@ PRIMES = pr.ntt_primes(2, bits=31)
 
 @functools.lru_cache(maxsize=None)
 def _plans(n):
-    return jntt.build_plan(n, PRIMES), tntt.build_plan(n, PRIMES)
+    return jntt.build_plan(n, PRIMES), tntt.build_plan(n, PRIMES, device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,7 +102,7 @@ def test_single_limb_slice_and_plan(n):
     _eq(tntt.ntt_fwd(tp, torch.from_numpy(x)),
         jax.jit(lambda v: jntt.ntt_fwd(jp, v))(jnp.asarray(x)))
     one_j = jntt.build_plan(n, PRIMES[1:])
-    one_t = tntt.build_plan(n, PRIMES[1:])
+    one_t = tntt.build_plan(n, PRIMES[1:], device="cpu")
     y = _polys(n, (3,), seed=12)[:, 1:]
     _eq(tntt.ntt_inv(one_t, torch.from_numpy(y)),
         jax.jit(lambda v: jntt.ntt_inv(one_j, v))(jnp.asarray(y)))
@@ -110,7 +110,7 @@ def test_single_limb_slice_and_plan(n):
 
 def test_ring_16384_row():
     n = 16384
-    jp, tp = jntt.build_plan(n, PRIMES[:1]), tntt.build_plan(n, PRIMES[:1])
+    jp, tp = jntt.build_plan(n, PRIMES[:1]), tntt.build_plan(n, PRIMES[:1], device="cpu")
     x = _polys(n, (), seed=3, limbs=1)
     _eq(tntt.ntt_fwd(tp, torch.from_numpy(x)),
         jax.jit(lambda v: jntt.ntt_fwd(jp, v))(jnp.asarray(x)))

@@ -32,7 +32,8 @@ PRESET = "test-512"
 
 @functools.lru_cache(maxsize=None)
 def _setup():
-    jctx, tctx = JaxContext(jax_params(PRESET)), CryptoContext(get_params(PRESET))
+    jctx = JaxContext(jax_params(PRESET))
+    tctx = CryptoContext(get_params(PRESET), device="cpu")
     jks = jax.jit(lambda k: jc.keygen(jctx, k, rlk_levels=[]))(jax.random.PRNGKey(0))
     arrays = {"s": np.asarray(jks.sk.s), "s_ntt_mont": np.asarray(jks.sk.s_ntt_mont),
               "s2_ntt_mont": np.asarray(jks.sk.s2_ntt_mont),
