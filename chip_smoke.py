@@ -8,8 +8,11 @@ Phases (any failure raises and the exit code is not 0):
    builds the kernels of `fhe_icp_tpu_torch/csrc/` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, bit-exact:
    the NTT at N = 512 .. 16384 with 1 and 2 limbs and several batch
-   shapes, the scoring kernel at the slice shape, a ragged and a
-   one-group store; the NTT's cyclic entry at N = 16 .. 256 with 1 and 12
+   shapes; the scoring kernel at the slice shape (2048 groups), a ragged
+   store (3125), one shard of the sharded store (391 groups, K split),
+   ragged row tiles (1 and 33 groups), the test-512 shape (4S = 16, 2N =
+   1024) and ring-16384's at d = 128 and 64 (4S = 512 and 1024, in column
+   tiles); the NTT's cyclic entry at N = 16 .. 256 with 1 and 12
    limbs; the all-to-all at 2, 4 and 8 shards, at both exchanges of the
    ring-16384 four-step NTT and at a chunk that is not a multiple of 16 B.
 3. The main path at full width, preset pairwise-4096 (N = 4096, 2 limbs):
@@ -30,7 +33,9 @@ Phases (any failure raises and the exit code is not 0):
    masking), every score and top-10 exact; the ring-16384 four-step NTT
    over 8 sp shards (12 limbs, N1 = N2 = 128): round trips and products
    equal to the single-card NTT's; `entry.dryrun_multichip(8)`.  Launch
-   counts are zeroed before the phase and read after it.  Then the
+   counts are zeroed before the phase and read after it: the all-to-all
+   must have launched exactly once per card per exchange (16 four-step
+   transforms x 2 exchanges = 32 on one card).  Then the
    8-shard search step against one shard holding 1/8 of the store (and
    the card's busy time and idle share over the step), and the
    distributed forward NTT against the single-card one.
@@ -46,7 +51,10 @@ Phases (any failure raises and the exit code is not 0):
    the same function (the int8 matmul alone through `torch._int_mm`; one
    strided `copy_` for the all-to-all), that call, beside the least time
    the card could take (bytes at 3.35 TB/s, NVLink at 450 GB/s each way,
-   or operations at the published peak rate).
+   or operations at the published peak rate).  The scoring kernel is
+   timed at 2048 groups (the JSON row) and at one 391-group shard, the
+   all-to-all at the ring-16384 exchange (the JSON row) and at 256 MiB,
+   each also by its device time per call from torch.profiler.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -114,6 +122,10 @@ KERNELS = {
 MAIN_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pack_score")
 SHARD_PATH_KERNELS = ("all_to_all", "pack_score", "ntt_fwd", "ntt_cyclic_fwd",
                       "ntt_cyclic_inv")
+# The multi-shard path runs 16 four-step transforms (4 round trips, 2
+# products of 2 forward and 1 inverse, and dryrun_multichip's 2), each with
+# 2 exchanges, and K3 makes one launch per card per exchange.
+K3_LAUNCHES_PER_CARD = 16 * 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -213,17 +225,23 @@ def kernels_vs_plain(rng) -> dict:
     check(errs["ntt_fwd"] == errs["ntt_inv"] == 0, f"NTT at main-path shapes: {errs}")
     print(f"  NTT at {(ENC_BATCH, 2, 4096)} and (2, 4096): bit-exact")
 
-    rt_ctx = CryptoContext(get_params(PRESET), DEVICE)
-    slots = pack.slots_per_ct(rt_ctx.n, DIM)
-    for g in (2048, 3125, 1):
-        a = torch.randint(-128, 128, (2, 4 * g, 2 * rt_ctx.n), dtype=torch.int8, device="cuda")
-        v = torch.randint(-128, 128, (2, 2 * rt_ctx.n, 4 * slots), dtype=torch.int8,
-                          device="cuda")
-        e = max_abs_err(pack_cuda.packed_score_residues(rt_ctx, a, v, 2, slots),
-                        pack_cuda.packed_score_residues_ref(rt_ctx, a, v, 2, slots))
-        check(e == 0, f"pack_score G={g}: max abs err {e}")
-        errs["pack_score"] = max(errs["pack_score"], e)
-        print(f"  pack_score G={g}: bit-exact")
+    # The slice's store, a ragged one, one 8-shard shard (K split), ragged
+    # row tiles; then test-512's shape (4S = 16, 2N = 1024) and ring-16384's
+    # at d = 128 and 64 (4S = 512 and 1024: 2 and 4 column tiles, 2N = 32768).
+    for preset, d, groups in ((PRESET, DIM, (2048, 3125, 391, 1, 33)),
+                              ("test-512", DIM, (33, 512)), (RING, DIM, (1, 64)),
+                              (RING, DIM // 2, (33,))):
+        rt_ctx = CryptoContext(get_params(preset), DEVICE)
+        slots, k = pack.slots_per_ct(rt_ctx.n, d), 2 * rt_ctx.n
+        for g in groups:
+            a = torch.randint(-128, 128, (2, 4 * g, k), dtype=torch.int8, device="cuda")
+            v = torch.randint(-128, 128, (2, k, 4 * slots), dtype=torch.int8, device="cuda")
+            e = max_abs_err(pack_cuda.packed_score_residues(rt_ctx, a, v, 2, slots),
+                            pack_cuda.packed_score_residues_ref(rt_ctx, a, v, 2, slots))
+            check(e == 0, f"pack_score {preset} G={g}: max abs err {e}")
+            errs["pack_score"] = max(errs["pack_score"], e)
+        print(f"  pack_score at {preset} (4S={4 * slots}, 2N={k}), G={groups} (K slices "
+              f"{[pack_cuda.k_splits(2, g, k, 4 * slots) for g in groups]}): bit-exact")
 
     # mod_switch (a one-limb plan in K2) on the card equals the CPU run.
     m = torch.from_numpy(rng.integers(-1000, 1001, size=(4, 512)).astype(np.int32))
@@ -481,6 +499,10 @@ def multi_shard_path(rng) -> dict:
     launches = dict(kernels.launches)
     for name in SHARD_PATH_KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} not launched on the multi-shard path")
+    cards = len(set(make_mesh(N_SHARDS, (N_SHARDS,), DEVICE, axes=(SP_AXIS,)).devices))
+    check(launches.get("all_to_all", 0) == K3_LAUNCHES_PER_CARD * cards,
+          f"all_to_all launched {launches.get('all_to_all', 0)} times, not once per card per "
+          f"exchange ({K3_LAUNCHES_PER_CARD} x {cards})")
     print(f"  launches on the multi-shard path: {launches}; path "
           f"{time.perf_counter() - t_start:.2f} s")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -694,23 +716,10 @@ def timings(rng, errs: dict, launches: dict, smi: str) -> list:
         out.append(dict(name=name, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
                         library_ms=None))
 
-    ctx = CryptoContext(get_params(PRESET), DEVICE)
-    slots, k = pack.slots_per_ct(ctx.n, DIM), 2 * ctx.n
-    g = N_DOCS // slots
-    a = torch.randint(-128, 128, (2, 4 * g, k), dtype=torch.int8, device="cuda")
-    v = torch.randint(-128, 128, (2, k, 4 * slots), dtype=torch.int8, device="cuda")
-    ms = cuda_ms(lambda: pack_cuda.packed_score_residues(ctx, a, v, 2, slots), reps=20)
-    plain = cuda_ms(lambda: pack_cuda.packed_score_residues_ref(ctx, a, v, 2, slots),
-                    reps=3, warmup=1)
-    lib = cuda_ms(lambda: [torch._int_mm(a[i], v[i]) for i in range(2)], reps=20)
-    byts = a.numel() + v.numel() + 2 * 4 * 4 * slots * 4 + 2 * 8 * 4 + 2 * g * slots * 4
-    ops = 2 * a.shape[0] * a.shape[1] * k * v.shape[2]
-    bound_ms, kind, why = bound(byts, ops, INT8_OPS_PER_S)
-    print(f"  pack_score G={g} (L=2, 2N={k}, 4S={4 * slots}): {ms:.4f} ms; plain "
-          f"{plain:.3f} ms; 2x torch._int_mm {lib:.4f} ms; bound {bound_ms:.4f} ms ({why}; "
-          f"{byts / 2 ** 20:.1f} MiB, {ops / 1e9:.2f} G int8 ops)")
-    out.append(dict(name="pack_score", ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
-                    library_ms=lib))
+    slots = pack.slots_per_ct(get_params(PRESET).n, DIM)
+    out.append(pack_score_timing(N_DOCS // slots))
+    # One shard of the multi-shard store: 3125 groups padded to 3128, over 8.
+    pack_score_timing(-(-N_DOCS_SHARDED // slots // PAD_GROUPS) * PAD_GROUPS // N_SHARDS)
     out += cyclic_timings(rng)
     out.append(all_to_all_timings())
     for row in out:
@@ -718,6 +727,35 @@ def timings(rng, errs: dict, launches: dict, smi: str) -> list:
         row.update(route="cuda", source=src, replaces=rep,
                    launches=launches.get(row["name"], 0), max_abs_err=errs[row["name"]])
     return out
+
+
+def pack_score_timing(g: int) -> dict:
+    """K1 on G groups of the slice's preset: the wrapper, the device, the yardstick."""
+    ctx = CryptoContext(get_params(PRESET), DEVICE)
+    slots, k = pack.slots_per_ct(ctx.n, DIM), 2 * ctx.n
+    a = torch.randint(-128, 128, (2, 4 * g, k), dtype=torch.int8, device="cuda")
+    v = torch.randint(-128, 128, (2, k, 4 * slots), dtype=torch.int8, device="cuda")
+    ms = cuda_ms(lambda: pack_cuda.packed_score_residues(ctx, a, v, 2, slots), reps=20)
+    # Both of the entry point's kernels (the query transpose, then the product
+    # and fold), and the second alone.
+    dev = device_us_per_call(lambda: pack_cuda.packed_score_residues(ctx, a, v, 2, slots),
+                             "pack_score")
+    dev_main = device_us_per_call(lambda: pack_cuda.packed_score_residues(ctx, a, v, 2, slots),
+                                  "pack_score_kernel")
+    plain = cuda_ms(lambda: pack_cuda.packed_score_residues_ref(ctx, a, v, 2, slots),
+                    reps=3, warmup=1)
+    lib = cuda_ms(lambda: [torch._int_mm(a[i], v[i]) for i in range(2)], reps=20)
+    byts = a.numel() + v.numel() + 2 * 4 * 4 * slots * 4 + 2 * 8 * 4 + 2 * g * slots * 4
+    ops = 2 * a.shape[0] * a.shape[1] * k * v.shape[2]
+    bound_ms, kind, why = bound(byts, ops, INT8_OPS_PER_S)
+    splits = pack_cuda.k_splits(2, g, k, 4 * slots)
+    print(f"  pack_score G={g} (L=2, 2N={k}, 4S={4 * slots}, {splits} K slices): {ms:.4f} ms "
+          f"(CUDA events around the wrapper; device time per call {fmt_us(dev)}, of which the "
+          f"product and fold {fmt_us(dev_main)}); plain {plain:.3f} ms; 2x torch._int_mm "
+          f"{lib:.4f} ms; bound {bound_ms:.4f} ms ({why}; {byts / 2 ** 20:.1f} MiB, "
+          f"{ops / 1e9:.2f} G int8 ops)")
+    return dict(name="pack_score", ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
+                library_ms=lib)
 
 
 def cyclic_timings(rng) -> list:
@@ -739,17 +777,18 @@ def cyclic_timings(rng) -> list:
              "ntt_inv_kernel<false>")):
         ms = cuda_ms(lambda: kern(plan, x), reps=50)
         plain = cuda_ms(lambda: ref(plan, x), reps=10)
-        dev = device_us_per_launch(lambda: kern(plan, x), symbol)
+        dev = device_us_per_call(lambda: kern(plan, x), symbol)
         print(f"  {name} {rows} rows x N={n} (one shard's transform at {RING}): {ms:.4f} ms "
-              f"(CUDA events around the wrapper; device time per launch {fmt_us(dev)}); "
+              f"(CUDA events around the wrapper; device time per call {fmt_us(dev)}); "
               f"plain {plain:.3f} ms; bound {bound_ms:.5f} ms ({why})")
         out.append(dict(name=name, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
                         library_ms=None))
     return out
 
 
-def device_us_per_launch(fn, kernel: str, calls: int = 10):
-    """Device time of one launch of `kernel` (torch.profiler), or None if not recorded."""
+def device_us_per_call(fn, kernel: str, calls: int = 10):
+    """Device time per fn() of the kernels whose name holds `kernel` (torch.profiler),
+    or None if none was recorded."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -759,7 +798,7 @@ def device_us_per_launch(fn, kernel: str, calls: int = 10):
         torch.cuda.synchronize()
     spans = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    return statistics.median(spans) if spans else None
+    return sum(spans) / calls if spans else None
 
 
 def fmt_us(us) -> str:
@@ -797,18 +836,22 @@ def time_exchange(flats, label: str) -> dict:
         inp = torch.stack(flats).view(torch.int32).view(d, d, rows // d, w)
         res = torch.empty_like(inp)
         lib = cuda_ms(lambda: res.copy_(inp.transpose(0, 1)), reps=20)
+        # The same copy_ into a tensor it allocates, as the kernel's wrapper does.
+        alloc = cuda_ms(lambda: torch.empty_like(inp).copy_(inp.transpose(0, 1)), reps=20)
         got = ici.exchange(flats)
         check(all(max_abs_err(res[j].reshape(rows, w).view(torch.uint32), got[j]) == 0
                   for j in range(d)), "the yardstick copy_ computes another function")
     bound_ms, kind, why = exchange_bound(flats)
     total = sum(x.numel() for x in flats) * 4
-    dev = device_us_per_launch(lambda: ici.exchange(flats), "all_to_all_kernel")
+    dev = device_us_per_call(lambda: ici.exchange(flats), "all_to_all_kernel")
+    cards = len({x.device for x in flats})
     print(f"  all_to_all {label}: {d} shards x ({rows}, {w}) uint32, {total / 2 ** 20:.2f} MiB on "
-          f"{len({x.device for x in flats})} card(s): {ms:.4f} ms ({d} launches, "
-          f"{2 * total / ms / 1e9:.3f} TB/s read + written; device time per launch "
+          f"{cards} card(s): {ms:.4f} ms ({cards} launch(es), one per card, "
+          f"{2 * total / ms / 1e9:.3f} TB/s read + written; device time per exchange "
           f"{fmt_us(dev)}); "
           f"plain {plain:.4f} ms; copy_ "
-          + ("n/a (shards on several cards)" if lib is None else f"{lib:.4f} ms")
+          + ("n/a (shards on several cards)" if lib is None
+             else f"{lib:.4f} ms (into a new tensor {alloc:.4f} ms)")
           + f"; bound {bound_ms:.5f} ms ({why})")
     return dict(name="all_to_all", ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
                 library_ms=lib)

@@ -7,27 +7,33 @@
 // per-peer send and receive semaphores.  The four-step ring-sharded NTT
 // (parallel/ntt_dist.py) runs it for both of its transposes.
 //
-// Design: one launch per source shard, on its card's current stream, as
-// the TPU kernel runs once per device.  Grid (blocks per chunk, D): block
-// row j copies chunk j of x_s straight into the destination buffer out_j,
-// whose pointer arrives by value in a small struct.  When out_j lies on
-// another card the stores go through the peer pointer over NVLink (the
-// wrapper enables peer access once per pair); when the shards share one
-// card they are plain stores within it.  The wrapper turns the TPU
-// kernel's semaphores into stream events: destinations record "ready"
-// after allocating, each card's stream waits on them before its sources'
-// launches and records "sent" after them, and every card waits on the
-// other cards' "sent" before the result is used.
+// Design: one launch per card per exchange, on the card's current stream,
+// covering every source shard that lies on the card.  Grid (blocks per
+// chunk, D destinations, sources on the card): block (x, j, z) copies part
+// of chunk j of the card's z-th source straight into destination buffer
+// out_j.  Source pointers, their shard indices and the D destination
+// pointers arrive by value in one struct and are selected with constant
+// indices only (a runtime index into a by-value struct copies all of it to
+// every thread's stack).  When out_j lies on another card the stores go
+// through the peer pointer over NVLink (the wrapper enables peer access
+// once per pair); when it lies on the same card they are plain stores.
+// The wrapper turns the TPU kernel's semaphores into stream events:
+// each destination card records "ready" after allocating, each card's
+// stream waits on the others' before its launch and records "sent" after
+// it, and every card waits on the other cards' "sent" before the result is
+// used.
 //
 // Bound on the H100: bytes.  Every element is read once and written once
-// (2 x the shard's bytes per launch) at 3.35 TB/s on one card, plus the
-// off-card share at 450 GB/s each way per card over NVLink.  At the
-// four-step NTT's sizes (96 KiB a shard at ring 16384, 12 limbs, 8 shards)
-// the launch itself, not the bytes, sets the time.
+// on its card at 3.35 TB/s, plus the off-card share at 450 GB/s each way
+// per card over NVLink.  At the four-step NTT's sizes (96 KiB a shard at
+// ring 16384, 12 limbs, 8 shards) the launch itself sets the time, so
+// there is one launch per card; one thread per 16-byte unit gives that
+// exchange 3 blocks per chunk, 192 blocks for the 132 SMs.
 //
-// Copies move 16 bytes a thread when the chunk's byte size and every base
-// pointer are 16-byte aligned, and 4 bytes otherwise: a branch inside the
-// kernel on a flag the entry point computes.
+// Copies move 16 bytes a thread, four independent copies in flight per
+// loop step, when the chunk's byte size and every base pointer are 16-byte
+// aligned, and 4 bytes otherwise: a branch inside the kernel on a flag the
+// entry point computes.
 
 #include <cuda_runtime.h>
 
@@ -37,32 +43,51 @@ namespace {
 
 constexpr int kMaxShards = 16;
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocksPerChunk = 1024;
+constexpr int kSms = 132;               // H100 SXM
+constexpr long long kTargetBlocks = 8LL * kSms;
+constexpr int kUnroll = 4;
 
-struct Destinations {
-  uint32_t* p[kMaxShards];
+struct Pointers {
+  const uint32_t* src[kMaxShards];      // the card's sources, in shard order
+  uint32_t* dst[kMaxShards];            // every destination shard
+  int src_index[kMaxShards];            // shard index of src[z]
 };
 
-__global__ void all_to_all_kernel(const uint32_t* __restrict__ x, Destinations dst,
-                                  long long chunk, int src, int vec16) {
-  const int j = blockIdx.y;
-  // Pick dst.p[j] with constant indices only: indexing the by-value struct
-  // with blockIdx.y would copy all of it to every thread's stack.
-  uint32_t* base = dst.p[0];
-#pragma unroll
-  for (int k = 1; k < kMaxShards; ++k)
-    if (k == j) base = dst.p[k];
-  const uint32_t* from = x + static_cast<long long>(j) * chunk;
-  uint32_t* to = base + static_cast<long long>(src) * chunk;
+template <typename T>
+__device__ __forceinline__ void copy_chunk(const T* __restrict__ from, T* __restrict__ to,
+                                           long long n) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (vec16) {
-    const uint4* f = reinterpret_cast<const uint4*>(from);
-    uint4* t = reinterpret_cast<uint4*>(to);
-    for (long long i = first; i < chunk / 4; i += stride) t[i] = f[i];
-  } else {
-    for (long long i = first; i < chunk; i += stride) to[i] = from[i];
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + (kUnroll - 1) * stride < n; i += kUnroll * stride) {
+    T v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = from[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) to[i + u * stride] = v[u];
   }
+  for (; i < n; i += stride) to[i] = from[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+all_to_all_kernel(const Pointers ptr, long long chunk, int vec16) {
+  const int j = blockIdx.y, z = blockIdx.z;
+  const uint32_t* x = ptr.src[0];
+  uint32_t* base = ptr.dst[0];
+  int s = ptr.src_index[0];
+#pragma unroll
+  for (int k = 1; k < kMaxShards; ++k) {
+    if (k == z) {
+      x = ptr.src[k];
+      s = ptr.src_index[k];
+    }
+    if (k == j) base = ptr.dst[k];
+  }
+  const uint32_t* from = x + static_cast<long long>(j) * chunk;
+  uint32_t* to = base + static_cast<long long>(s) * chunk;
+  if (vec16)
+    copy_chunk(reinterpret_cast<const uint4*>(from), reinterpret_cast<uint4*>(to), chunk / 4);
+  else
+    copy_chunk(from, to, chunk);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -71,24 +96,38 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 extern "C" {
 
-// x: source shard `src`, (n_shards * chunk) words; dsts: n_shards
-// destination buffers of the same size.  Launches on `stream`.
-int fhe_all_to_all(const void* x, const void* const* dsts, int n_shards, long long chunk,
-                   int src, void* stream) {
-  if (n_shards < 1 || n_shards > kMaxShards || src < 0 || src >= n_shards || chunk < 1)
+// srcs: the n_src source shards on the current card, each (n_shards * chunk)
+// words, as an array of pointers; src_index: their shard indices (NULL for
+// 0 .. n_src - 1); dsts: all n_shards destination buffers of the same size.
+// One launch on `stream`.
+int fhe_all_to_all(const uint64_t* srcs, const int* src_index, int n_src, const uint64_t* dsts,
+                   int n_shards, long long chunk, void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards || n_src < 1 || n_src > n_shards || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Destinations d{};
-  bool vec16 = chunk % 4 == 0 && aligned16(x);
-  for (int j = 0; j < n_shards; ++j) {
-    d.p[j] = static_cast<uint32_t*>(const_cast<void*>(dsts[j]));
-    vec16 = vec16 && aligned16(dsts[j]);
+  Pointers p{};
+  bool vec16 = chunk % 4 == 0;
+  for (int z = 0; z < n_src; ++z) {
+    const int s = src_index ? src_index[z] : z;
+    if (s < 0 || s >= n_shards) return static_cast<int>(cudaErrorInvalidValue);
+    p.src[z] = reinterpret_cast<const uint32_t*>(srcs[z]);
+    p.src_index[z] = s;
+    vec16 = vec16 && aligned16(p.src[z]);
   }
+  for (int j = 0; j < n_shards; ++j) {
+    p.dst[j] = reinterpret_cast<uint32_t*>(dsts[j]);
+    vec16 = vec16 && aligned16(p.dst[j]);
+  }
+  // One thread per copied unit up to one resident wave of blocks (8 per SM);
+  // past that, each thread loops.
   const long long units = vec16 ? chunk / 4 : chunk;
+  const long long chunks = static_cast<long long>(n_src) * n_shards;
   long long blocks = (units + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocksPerChunk) blocks = kMaxBlocksPerChunk;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_shards));
-  all_to_all_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), d, chunk, src, vec16 ? 1 : 0);
+  const long long cap = kTargetBlocks / chunks > 0 ? kTargetBlocks / chunks : 1;
+  if (blocks > cap) blocks = cap;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_shards),
+                  static_cast<unsigned>(n_src));
+  all_to_all_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, chunk,
+                                                                              vec16 ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

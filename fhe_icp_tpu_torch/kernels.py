@@ -7,10 +7,13 @@ The library is loaded with `ctypes`; no PyTorch header is compiled, so a
 build takes seconds.  It is built once, at the first launch, and again
 only when a source is newer than the library.
 
-Each C entry point launches one kernel on the stream it is given and
-returns `cudaGetLastError()`; `check` raises on anything but 0, so a
-refused launch never passes silently.  Wrappers launch inside
-`launch_on(device)`, which makes the tensor's card current.
+Each C entry point launches its kernel on the stream it is given (K1's
+also transposes the query digits there first) and returns
+`cudaGetLastError()`; `check` raises on anything but 0, so a refused
+launch never passes silently.  Wrappers launch inside `launch_on(device)`,
+which makes the tensor's card current.  Nothing links against `libcuda`:
+K1's TMA descriptors are encoded by a driver function that
+`pack_score.cu` fetches through the runtime.
 
 `launches` counts, per kernel, the launches made by the wrappers in
 `ops/ntt_cuda.py`, `ops/pack_cuda.py` and `parallel/ici.py`; it lets a
@@ -20,7 +23,6 @@ caller show that a run went through the kernels.
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import os
 import shutil
@@ -42,8 +44,8 @@ _SIGNATURES = {
     "fhe_ntt_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fhe_ntt_cyclic_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fhe_ntt_cyclic_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fhe_pack_score": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fhe_all_to_all": [_P, _P, _I, _L, _I, _P],
+    "fhe_pack_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fhe_all_to_all": [_P, _P, _I, _P, _I, _L, _P],
     "fhe_enable_peer_access": [_I, _I],
 }
 
@@ -118,14 +120,30 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
-@contextlib.contextmanager
-def launch_on(device):
-    """Make `device` current for a launch; yields its current stream's handle.
+class launch_on:
+    """`with launch_on(device) as stream:` makes `device` current for a launch
+    and gives its current stream's handle.
 
     The default stream's handle is 0, which CUDA reads as the default
     stream of whichever device is current: a launch for a tensor on another
-    card than the current one must make that card current first.
+    card than the current one must make that card current first.  When it
+    already is, nothing is switched (the common case, and the cheap one);
+    the handle comes from `_cuda_getCurrentRawStream`, which builds no
+    Stream object: at the four-step NTT's sizes a launch costs less on the
+    card than its wrapper does on the host.
     """
-    import torch
-    with torch.cuda.device(device):
-        yield torch.cuda.current_stream(device).cuda_stream
+
+    def __init__(self, device):
+        self.index = device.index
+        self.guard = None
+
+    def __enter__(self) -> int:
+        import torch
+        if torch.cuda.current_device() != self.index:
+            self.guard = torch.cuda.device(self.index)
+            self.guard.__enter__()
+        return torch._C._cuda_getCurrentRawStream(self.index)
+
+    def __exit__(self, *exc) -> None:
+        if self.guard is not None:
+            self.guard.__exit__(*exc)

@@ -13,23 +13,24 @@ of shard s into rows [s*c, (s+1)*c) of shard j's output, through peer
 pointers when the two lie on different cards; the wrapper then restores
 the axis order and concatenates the D received blocks.
 
-For CUDA shards `all_to_all` launches the kernel, one launch per source
-shard; cards that cannot reach each other make it raise (it never stages
-through the host).  For CPU shards it runs the plain version
-`all_to_all_ref` (torch chunk, `.to(device)` and cat).
+For CUDA shards `all_to_all` launches the kernel, one launch per card
+covering every source shard on it (`launch_plan`); cards that cannot
+reach each other make it raise (it never stages through the host).  For
+CPU shards it runs the plain version `all_to_all_ref` (torch chunk,
+`.to(device)` and cat).
 """
 
 from __future__ import annotations
 
-import ctypes
 import threading
-from typing import List, Sequence, Tuple
+from array import array
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from .. import kernels
 
-# The kernel takes the destination pointers by value in a fixed struct.
+# The kernel takes the source and destination pointers by value in a fixed struct.
 MAX_SHARDS = 16
 
 _peers_lock = threading.Lock()
@@ -79,54 +80,100 @@ def _event_on(device: torch.device) -> torch.cuda.Event:
     return ev
 
 
+def launch_plan(devices: Sequence[torch.device]) -> Dict[torch.device, List[int]]:
+    """{card: the indices of the shards on it, in order}, cards in order of first use.
+
+    One K3 launch per card covers its sources; with 8 shards round-robin on
+    4 cards, card c holds shards c and c + 4.
+    """
+    plan: Dict[torch.device, List[int]] = {}
+    for s, dev in enumerate(devices):
+        plan.setdefault(dev, []).append(s)
+    return plan
+
+
+def _shard_pointers(flats: Sequence[torch.Tensor]) -> Tuple[List[int], List[int]]:
+    """Each shard's data pointer and card index, after checking what the kernel takes."""
+    d = len(flats)
+    shape = flats[0].shape
+    if not 1 <= d <= MAX_SHARDS or len(shape) != 2 or shape[0] % d:
+        raise ValueError(f"exchange takes 1..{MAX_SHARDS} 2-D shards whose rows divide "
+                         f"over them; got {d} of {tuple(shape)}")
+    ptrs, cards = [], []
+    for x in flats:
+        if x.dtype is not torch.uint32 or x.shape != shape or not x.is_cuda \
+                or not x.is_contiguous():
+            raise ValueError(f"exchange needs contiguous uint32 CUDA shards of one shape, got "
+                             f"{[(tuple(y.shape), y.dtype, str(y.device)) for y in flats]}")
+        ptrs.append(x.data_ptr())
+        cards.append(x.get_device())
+    return ptrs, cards
+
+
 def exchange(flats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The 2-D all-to-all on D (D*c, W) uint32 shards.
 
     out_j[s*c:(s+1)*c] = x_s[j*c:(j+1)*c]: the kernel for CUDA shards, one
-    launch per source shard; for CPU shards the plain version,
-    `all_to_all_ref(flats, 0, 0)`.
+    launch per card; for CPU shards the plain version,
+    `all_to_all_ref(flats, 0, 0)`.  The outputs on one card are views of
+    one (shards on the card, D*c, W) buffer.  At the four-step NTT's sizes
+    the host work of this function, not the copy, sets its time, so the
+    checks and pointers take one pass over the shards.
     """
-    if all(x.device.type == "cpu" for x in flats):
+    if flats[0].device.type == "cpu" and all(x.device.type == "cpu" for x in flats):
         return all_to_all_ref(flats, 0, 0)
-    _check(flats, 0)
-    if not all(x.is_contiguous() and x.dim() == 2 for x in flats):
-        raise ValueError("exchange needs contiguous 2-D shards")
+    srcs, cards = _shard_pointers(flats)
     d = len(flats)
     rows, w = flats[0].shape
-    chunk = rows // d * w
-    outs = [torch.empty_like(x) for x in flats]
+    chunk, step = rows // d * w, rows * w * 4
+    lib = kernels.load()
+    if cards.count(cards[0]) == d:            # one card: sources 0 .. D-1 in order
+        card = flats[0].device
+        buf = torch.empty((d, rows, w), dtype=torch.uint32, device=card)
+        if chunk:
+            base = buf.data_ptr()
+            ptrs = array("Q", srcs)               # the sources, then the destinations
+            ptrs.extend(range(base, base + d * step, step))
+            at = ptrs.buffer_info()[0]
+            with kernels.launch_on(card) as handle:
+                err = lib.fhe_all_to_all(at, None, d, at + 8 * d, d, chunk, handle)
+            kernels.check(err, "all_to_all")
+            kernels.launches["all_to_all"] += 1
+        return list(buf.unbind(0))
+
+    # Several cards: one buffer and one launch each, ordered by stream events.
+    plan = launch_plan([x.device for x in flats])
+    outs: List[torch.Tensor] = [None] * d
+    dsts = array("Q", bytes(8 * d))
+    bufs = {}
+    for card, sources in plan.items():
+        buf = bufs[card] = torch.empty((len(sources), rows, w), dtype=torch.uint32, device=card)
+        for pos, (s, view) in enumerate(zip(sources, buf.unbind(0))):
+            outs[s] = view
+            dsts[s] = buf.data_ptr() + pos * step
     if chunk == 0:
         return outs
-    by_card: dict = {}                       # card -> its source shards, in order
-    for s, x in enumerate(flats):
-        by_card.setdefault(x.device, []).append(s)
-    cross = len(by_card) > 1
-    if cross:
-        _enable_peers(sorted(by_card, key=lambda v: v.index))
-        ready = [_event_on(o.device) for o in outs]
-    lib = kernels.load()
-    dsts = (ctypes.c_void_p * d)(*(o.data_ptr() for o in outs))
+    _enable_peers(list(plan))
+    ready = {card: _event_on(card) for card in plan}
     sent = {}
-    for card, sources in by_card.items():
+    for card, sources in plan.items():
         stream = torch.cuda.current_stream(card)
+        card_srcs, index = array("Q", (srcs[s] for s in sources)), array("i", sources)
         with kernels.launch_on(card) as handle:
-            if cross:
-                for j, o in enumerate(outs):
-                    if o.device != card:
-                        stream.wait_event(ready[j])
-                        o.record_stream(stream)
-            for s in sources:
-                err = lib.fhe_all_to_all(flats[s].data_ptr(), dsts, d, chunk, s, handle)
-                kernels.check(err, "all_to_all")
-                kernels.launches["all_to_all"] += 1
-            if cross:
-                sent[card] = _event_on(card)
-    if cross:
-        for card in by_card:
-            stream = torch.cuda.current_stream(card)
-            for src_card, ev in sent.items():
-                if src_card != card:
+            for other, ev in ready.items():
+                if other != card:
                     stream.wait_event(ev)
+                    bufs[other].record_stream(stream)
+            err = lib.fhe_all_to_all(card_srcs.buffer_info()[0], index.buffer_info()[0],
+                                     len(sources), dsts.buffer_info()[0], d, chunk, handle)
+            sent[card] = _event_on(card)
+        kernels.check(err, "all_to_all")
+        kernels.launches["all_to_all"] += 1
+    for card in plan:
+        stream = torch.cuda.current_stream(card)
+        for src_card, ev in sent.items():
+            if src_card != card:
+                stream.wait_event(ev)
     return outs
 
 

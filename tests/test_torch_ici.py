@@ -76,6 +76,16 @@ def test_kernel_wrapper_refuses_other_devices():
         ici.all_to_all(x, 0, 1)
 
 
+@pytest.mark.parametrize("cards", [1, 2, 4])
+def test_launch_plan_groups_round_robin_shards_by_card(cards):
+    """One K3 launch per card, over its sources in shard order: card c of 4 gets [c, c + 4]."""
+    devices = [torch.device("cuda", i % cards) for i in range(8)]
+    plan = ici.launch_plan(devices)
+    assert list(plan) == [torch.device("cuda", c) for c in range(cards)]
+    for c in range(cards):
+        assert plan[torch.device("cuda", c)] == list(range(c, 8, cards))
+
+
 @pytest.mark.parametrize("spec", [BATCH_SPEC, PACKED_OPERAND_SPEC, REPLICATED])
 def test_shard_and_gather_round_trip(spec):
     mesh = make_mesh(8, (4, 2), device="cpu")

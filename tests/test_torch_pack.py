@@ -24,6 +24,7 @@ from fhe_icp_tpu.ops.params import get_params as jax_params
 from fhe_icp_tpu_torch import interop
 from fhe_icp_tpu_torch.ops import pack, pack_cuda
 from fhe_icp_tpu_torch.ops.context import CryptoContext
+from fhe_icp_tpu_torch.ops.modmath import add_mod
 from fhe_icp_tpu_torch.ops.params import get_params
 
 D = 128
@@ -133,6 +134,63 @@ def test_packed_scores_match_oracle(groups):
     jdop = jpack.PackedDocOperand(jnp.asarray(c["dop"]), c["level"])
     jqop = jpack.PackedQueryOperand(jnp.asarray(c["qop"]), c["level"], D, c["slots"])
     _eq(got, jpack.packed_scores(jctx, jdop, jqop, impl="xla"))
+
+
+@pytest.mark.parametrize("groups", [1, 3, 8])
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_k_slices_add_up_to_pallas_kernel(splits, groups):
+    """The fold is linear mod p: add_mod of the K slices' residues is the whole's.
+
+    This is what the kernel's split K relies on; the slices are the ones
+    the kernel takes (`k_slices`).
+    """
+    jctx, tctx, _, _ = _setup()
+    c = _case(groups)
+    want = pack_pallas.packed_score_residues(
+        jctx, jnp.asarray(c["dop"]), jnp.asarray(c["qop"]), c["level"], c["slots"],
+        interpret=True)
+    a, v = torch.from_numpy(c["dop"]), torch.from_numpy(c["qop"])
+    p = tctx.p[:c["level"]].reshape(-1, 1, 1)
+    got = None
+    for start, stop in pack_cuda.k_slices(a.shape[2], splits):
+        part = pack_cuda.packed_score_residues_ref(
+            tctx, a[:, :, start:stop].contiguous(), v[:, start:stop].contiguous(), c["level"],
+            c["slots"])
+        got = part if got is None else add_mod(got, part, p)
+    _eq(got, want)
+
+
+def test_k_split_rule():
+    sms, tile = pack_cuda.SMS, pack_cuda.BLOCK_ROWS // 4
+    # The single-shard store fills the card alone: no split.
+    assert pack_cuda.k_splits(2, 2048, 8192, 128) == 1
+    # One of 8 shards (391 groups, 26 tiles): split until one wave is nearly full.
+    tiles = 2 * -(-391 // tile)
+    s = pack_cuda.k_splits(2, 391, 8192, 128)
+    assert tiles * s <= sms < tiles * (s + 1)
+    # 4S = 512 (ring-16384 at d = 128) runs in two column tiles, which count
+    # as tiles: 2048 groups then fill two waves and take no split either.
+    assert pack_cuda.col_tiles(512) == 2 and pack_cuda.col_tiles(256) == 1
+    assert pack_cuda.k_splits(2, 2048, 32768, 512) == 1
+    for l, g, k, cols in ((2, 2048, 8192, 128), (2, 391, 8192, 128), (2, 3125, 8192, 128),
+                          (2, 1, 8192, 128), (2, 33, 1024, 16), (3, 7, 1024, 16),
+                          (1, 100, 2048, 64), (2, 64, 32768, 512)):
+        s = pack_cuda.k_splits(l, g, k, cols)
+        slices = pack_cuda.k_slices(k, s)
+        assert 1 <= s <= k // pack_cuda.K_TILE and len(slices) == s
+        assert slices[0][0] == 0 and slices[-1][1] == k
+        assert all(stop > start and start % pack_cuda.K_TILE == 0 == stop % pack_cuda.K_TILE
+                   for start, stop in slices)
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+
+
+def test_scoring_wrapper_refuses_other_devices():
+    """Only CPU operands take the plain version; others launch the kernel or raise."""
+    _, tctx, _, _ = _setup()
+    a = torch.zeros((2, 8, 1024), dtype=torch.int8, device="meta")
+    v = torch.zeros((2, 1024, 16), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError):
+        pack_cuda.packed_score_residues(tctx, a, v, 2, 4)
 
 
 def test_encode_packed_and_balanced_digits():
