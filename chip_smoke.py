@@ -1,20 +1,32 @@
 """Drive the PyTorch/CUDA port's encrypted search paths on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2-times [DIR]
+
+The second form times K2 alone at the paths' shapes (`k2_times`), one JSON
+line per entry and shape, with the package in DIR: an earlier tree of the
+port unpacked there (`git archive <commit> | tar -x -C DIR`) runs its own
+K2 at the same shapes, so that two trees compare on one card in one run.
 
 Phases (any failure raises and the exit code is not 0):
 
 1. Device and build: needs CUDA, prints the card's name and power limit,
    builds the kernels of `fhe_icp_tpu_torch/csrc/` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, bit-exact:
-   the NTT at N = 512 .. 16384 with 1 and 2 limbs and several batch
-   shapes; the scoring kernel at the slice shape (2048 groups), a ragged
-   store (3125), one shard of the sharded store (391 groups, K split),
-   ragged row tiles (1 and 33 groups), the test-512 shape (4S = 16, 2N =
-   1024) and ring-16384's at d = 128 and 64 (4S = 512 and 1024, in column
-   tiles); the NTT's cyclic entry at N = 16 .. 256 with 1 and 12
-   limbs; the all-to-all at 2, 4 and 8 shards, at both exchanges of the
-   ring-16384 four-step NTT and at a chunk that is not a multiple of 16 B.
+   the NTT (all four entries: forward, inverse, and their cyclic forms)
+   at N = 16 .. 16384 with 1, 2 and 12 rows and limbs, at the batches
+   where `ntt_cuda.launch_shape` changes regime (clusters, R rows a
+   block, a ragged group of R), at the main path's (8192, 2, 4096) and (2,
+   4096), ring-16384's (12, 16384) and the four-step NTT's (16, 12, 16 ..
+   256), in every launch the kernels take (`launch_candidates`) at N =
+   512, 4096, 16384, and on a view that starts one word into its storage
+   (the C entry refuses it, the wrapper realigns it); the scoring kernel
+   at the slice shape (2048 groups), a ragged store (3125), one shard of
+   the sharded store (391 groups, K split), ragged row tiles (1 and 33
+   groups), the test-512 shape (4S = 16, 2N = 1024) and ring-16384's at d
+   = 128 and 64 (4S = 512 and 1024, in column tiles); the all-to-all at 2,
+   4 and 8 shards, at both exchanges of the ring-16384 four-step NTT and
+   at a chunk that is not a multiple of 16 B.
 3. The main path at full width, preset pairwise-4096 (N = 4096, 2 limbs):
    keys from seed 0, 65,536 per-document quantized unit vectors
    (d = 128, scale 1000) encrypted in batches of 8192, packed into 2048
@@ -51,7 +63,12 @@ Phases (any failure raises and the exit code is not 0):
    the same function (the int8 matmul alone through `torch._int_mm`; one
    strided `copy_` for the all-to-all), that call, beside the least time
    the card could take (bytes at 3.35 TB/s, NVLink at 450 GB/s each way,
-   or operations at the published peak rate).  The scoring kernel is
+   or operations at the published peak rate).  The NTT's forward and
+   inverse are timed at one encrypt batch (16,384 rows x N = 4096, the
+   JSON rows), a query's 2 rows and one ring-16384 polynomial (12 x
+   16384), its cyclic entries at one four-step shard (192 x 128, the JSON
+   rows), each also by device time per call and each checked bit-exact on
+   the inputs it was timed on.  The scoring kernel is
    timed at 2048 groups (the JSON row) and at one 391-group shard, the
    all-to-all at the ring-16384 exchange (the JSON row) and at 256 MiB,
    each also by its device time per call from torch.profiler.
@@ -64,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -72,7 +90,11 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# The port's package: this checkout's, or the one in DIR after --k2-times.
+_ARGS = sys.argv[1:]
+TREE = os.path.abspath(_ARGS[1] if _ARGS[:1] == ["--k2-times"] and len(_ARGS) > 1
+                       else os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, TREE)
 
 from fhe_icp_tpu_torch import entry, kernels  # noqa: E402
 from fhe_icp_tpu_torch.ops import arith, ntt_cuda, pack, pack_cuda  # noqa: E402
@@ -179,9 +201,7 @@ def device_and_build() -> str:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     phase("device and build")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
@@ -189,41 +209,52 @@ def device_and_build() -> str:
     log = kernels.build()
     kernels.load()
     print(f"build {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    report = ptxas_report(log)
+    for name, (regs, stack) in report.items():
+        print(f"  ptxas: {name}: {regs} registers, {stack} bytes stack")
+    ntt = {k: v for k, v in report.items() if k.startswith("ntt_")}
+    check(len(ntt) == 32 and all(st == 0 for _, st in ntt.values()),
+          f"K2 instances with a stack frame, or missing from the build log: {ntt}")
     print("kernels:", " ".join(KERNELS))
     return smi
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: (registers, stack bytes)} from nvcc's -Xptxas -v output.
+
+    K2's templates are named ntt_block_kernel<fwd, twist, C> and
+    ntt_warp_kernel<fwd, twist, E>; other kernels keep ptxas's name.
+    """
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"(ntt_(?:block|warp)_kernel)ILb(\d)ELb(\d)ELi(\d+)E", name)
+            if t:
+                name = f"{t.group(1)}<{t.group(2)}, {t.group(3)}, {t.group(4)}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out[name] = [None, int(m.group(1))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out and out[name][0] is None:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def kernels_vs_plain(rng) -> dict:
     phase("kernels against plain versions")
     errs = {name: 0 for name in KERNELS}
-    primes = pr.ntt_primes(2, bits=31)
-    for n in (512, 1024, 2048, 4096, 16384):
-        plan = build_plan(n, primes, "cuda")
-        one = build_plan(n, primes[1:], "cuda")
-        for p, shape in ((plan, (2, n)), (plan, (3, 2, n)), (plan, (2, 5, 2, n)),
-                         (plan, (4, 1, n)), (one, (3, 1, n))):
-            x = random_residues(rng, p, shape)
-            fwd = ntt_cuda.ntt_fwd(p, x)
-            e_f = max_abs_err(fwd, ntt_cuda.ntt_fwd_ref(p, x))
-            e_i = max_abs_err(ntt_cuda.ntt_inv(p, x), ntt_cuda.ntt_inv_ref(p, x))
-            e_r = max_abs_err(ntt_cuda.ntt_inv(p, fwd), x)
-            check(e_f == e_i == e_r == 0, f"NTT N={n} shape={shape}: {e_f} {e_i} {e_r}")
-            errs["ntt_fwd"] = max(errs["ntt_fwd"], e_f)
-            errs["ntt_inv"] = max(errs["ntt_inv"], e_i)
-        print(f"  NTT N={n}: fwd, inv, round trip bit-exact (L=1, 2; 5 batch shapes)")
-    # The main path's own NTT shapes: one encrypt batch and a key row.
-    plan = build_plan(4096, primes, "cuda")
-    for shape in ((ENC_BATCH, 2, 4096), (2, 4096)):
-        x = random_residues(rng, plan, shape)
-        errs["ntt_fwd"] = max(errs["ntt_fwd"], max_abs_err(
-            ntt_cuda.ntt_fwd(plan, x), ntt_cuda.ntt_fwd_ref(plan, x)))
-        errs["ntt_inv"] = max(errs["ntt_inv"], max_abs_err(
-            ntt_cuda.ntt_inv(plan, x), ntt_cuda.ntt_inv_ref(plan, x)))
-    check(errs["ntt_fwd"] == errs["ntt_inv"] == 0, f"NTT at main-path shapes: {errs}")
-    print(f"  NTT at {(ENC_BATCH, 2, 4096)} and (2, 4096): bit-exact")
+    ntt_vs_plain(rng, errs)
 
     # The slice's store, a ragged one, one 8-shard shard (K split), ragged
     # row tiles; then test-512's shape (4S = 16, 2N = 1024) and ring-16384's
@@ -255,24 +286,120 @@ def kernels_vs_plain(rng) -> dict:
           "mod_switch on the card differs from the CPU")
     check(torch.equal(rt.decrypt(want), m), "mod_switch decrypt")
     print("  mod_switch_to(2) at test-512-mult: card == CPU, decrypts exactly")
-    cyclic_vs_plain(rng, errs)
     all_to_all_vs_plain(rng, errs)
     return errs
 
 
-def cyclic_vs_plain(rng, errs: dict) -> None:
-    """The NTT's cyclic entry (no twist) at the four-step NTT's sizes and below."""
-    primes = get_params(RING).primes
-    for n in (16, 32, 64, 128, 256):
-        for limbs in (1, len(primes)):
-            plan = build_plan(n, primes[:limbs], DEVICE)
-            x = random_residues(rng, plan, (16, limbs, n))
-            e_f = max_abs_err(ntt_cuda.cyclic_fwd(plan, x), ntt_cuda.cyclic_fwd_ref(plan, x))
-            e_i = max_abs_err(ntt_cuda.cyclic_inv(plan, x), ntt_cuda.cyclic_inv_ref(plan, x))
-            check(e_f == e_i == 0, f"cyclic NTT N={n} L={limbs}: {e_f} {e_i}")
-            errs["ntt_cyclic_fwd"] = max(errs["ntt_cyclic_fwd"], e_f)
-            errs["ntt_cyclic_inv"] = max(errs["ntt_cyclic_inv"], e_i)
-    print(f"  cyclic NTT N=16..256, L=1 and {len(primes)}, 16 rows: fwd, inv bit-exact")
+NTT_ENTRIES = (("ntt_fwd", ntt_cuda.ntt_fwd, ntt_cuda.ntt_fwd_ref),
+               ("ntt_inv", ntt_cuda.ntt_inv, ntt_cuda.ntt_inv_ref),
+               ("ntt_cyclic_fwd", ntt_cuda.cyclic_fwd, ntt_cuda.cyclic_fwd_ref),
+               ("ntt_cyclic_inv", ntt_cuda.cyclic_inv, ntt_cuda.cyclic_inv_ref))
+
+
+def regime(rows: int, l: int, n: int) -> tuple:
+    s = ntt_cuda.launch_shape(rows, l, n)
+    return (s.regime, s.rows_per_block, s.cluster)
+
+
+def edge_batches(l: int, n: int, limit: int = 4096) -> list:
+    """Batches of l-limb rows at K2's regime edges: just below and at the
+    first batch launched without a cluster, the first with R > 1 rows per
+    block, and the first after it that R does not divide."""
+    out, prev, ragged_r = set(), None, None
+    for b in range(1, limit + 1):
+        kind, r, c = regime(b * l, l, n)
+        if prev is not None and prev[2] > 1 and c == 1:
+            out |= {b - 1, b}
+        if r > 1 and ragged_r is None:
+            out.add(b)
+            ragged_r = r
+        if ragged_r and b % r:
+            out.add(b)
+            break
+        prev = (kind, r, c)
+    return sorted(out)
+
+
+def ntt_vs_plain(rng, errs: dict) -> None:
+    """K2 (all four entries) in every regime and at its edges, bit-exact.
+
+    N = 16 .. 16384 at 1, 2 and 12 rows (1, 2 and 12 limbs), 3 x 2 and 5 x 1
+    rows, a one-prime plan; the batches where launch_shape leaves clusters
+    for one block per row, or first takes R > 1 rows of a limb, and a
+    ragged group of R; the main path's (8192, 2, 4096) and (2, 4096) and
+    the ring-16384 polynomial (12, 16384); the four-step NTT's shard (16,
+    12) at N = 16 .. 256.  Every forward is also inverted back to its input.
+    Then every launch the kernels take, and a view one word into its storage.
+    """
+    two, ring = pr.ntt_primes(2, bits=31), get_params(RING).primes
+    cases = []
+    for n in (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
+        cases += [(two, (1, 1), n), (two, (1, 2), n), (ring, (1, 12), n), (two, (3, 2), n),
+                  (two, (5, 1), n), (two[1:], (3, 1), n)]
+    edge_cases = ((two, 2, 4096), (two, 1, 512), (ring, 12, 16384), (two, 2, 16384))
+    for prs, l, n in edge_cases:
+        cases += [(prs, (b, l), n) for b in edge_batches(l, n)]
+    cases += [(two, (ENC_BATCH, 2), 4096), (two, (2,), 4096), (ring, (12,), 16384)]
+    cases += [(ring, (16, 12), n) for n in (16, 32, 64, 128, 256)]
+    plans, seen = {}, set()
+    for prs, lead, n in cases:
+        key = (n, tuple(prs[:lead[-1]]))
+        if key not in plans:
+            plans[key] = build_plan(n, key[1], DEVICE)
+        plan = plans[key]
+        x = random_residues(rng, plan, lead + (n,))
+        for name, kern, ref in NTT_ENTRIES:
+            e = max_abs_err(kern(plan, x), ref(plan, x))
+            check(e == 0, f"{name} N={n} shape={lead}: max abs err {e}")
+            errs[name] = max(errs[name], e)
+        check(max_abs_err(ntt_cuda.ntt_inv(plan, ntt_cuda.ntt_fwd(plan, x)), x) == 0,
+              f"NTT round trip N={n} shape={lead}")
+        seen.add((n,) + regime(x.numel() // n, lead[-1], n))
+    edges = {(l, n): edge_batches(l, n) for _, l, n in edge_cases}
+    print(f"  K2 fwd, inv, cyclic fwd, cyclic inv bit-exact, fwd -> inv round trips exact, on "
+          f"{len(cases)} shapes: N=16..16384 at 1/2/12 limbs, batches at the regime edges "
+          f"{edges} (limbs, N): batches; the main path's (8192, 2, 4096) and (2, 4096), "
+          f"ring-16384's (12, 16384), the four-step shard's (16, 12, 16..256)")
+    print("  launches taken (N, regime, R, C): " + ", ".join(map(str, sorted(seen))))
+    # Every launch the kernels take, chosen or not, on a ragged batch of 9.
+    forced = []
+    for n in (512, 4096, 16384):
+        plan = build_plan(n, two, DEVICE)
+        x = random_residues(rng, plan, (9, 2, n))
+        for _, shape in ntt_cuda.launch_candidates(18, 2, n):
+            for name, _, ref in NTT_ENTRIES:
+                e = max_abs_err(ntt_cuda._launch(plan, x, name, shape), ref(plan, x))
+                check(e == 0, f"{name} N={n} forced {shape}: max abs err {e}")
+            forced.append((n, shape.rows_per_block, shape.cluster))
+    print(f"  every launch the kernels take, on 9 x 2 rows, all four entries bit-exact "
+          f"(N, R, C): {forced}")
+    unaligned_view(rng)
+
+
+def unaligned_view(rng) -> None:
+    """K2 on a view that starts one word into its storage (4-byte aligned).
+
+    The block regime moves rows as 16-byte vectors: its C entry refuses the
+    view's pointer (cudaErrorInvalidValue) and the wrapper copies the view to
+    an aligned tensor first, so all four entries stay bit-exact.
+    """
+    plan = build_plan(4096, pr.ntt_primes(2, bits=31), DEVICE)
+    x = random_residues(rng, plan, (3, 2, 4096))
+    buf = torch.empty(x.numel() + 1, dtype=torch.uint32, device=DEVICE)
+    buf[1:] = x.reshape(-1)
+    view = buf[1:].view(x.shape)
+    for name, kern, ref in NTT_ENTRIES:
+        e = max_abs_err(kern(plan, view), ref(plan, x))
+        check(e == 0, f"{name} on an unaligned view: max abs err {e}")
+    s = ntt_cuda.launch_shape(6, 2, 4096)
+    out = torch.empty_like(x)
+    with kernels.launch_on(view.device) as stream:
+        err = kernels.load().fhe_ntt_fwd(view.data_ptr(), out.data_ptr(),
+                                         plan.fwd_table.data_ptr(), plan.p.data_ptr(), 6, 2,
+                                         4096, 12, s.rows_per_block, s.cluster, s.threads, stream)
+    check(err == 1, f"the forward entry took an unaligned pointer (returned {err})")
+    print(f"  a view one word into its storage (6 x 4096, C = {s.cluster}): the C entry "
+          "refuses it (cudaErrorInvalidValue), the four wrappers are bit-exact")
 
 
 def ring_shards(rng, d: int, shape) -> list:
@@ -698,35 +825,92 @@ def bound(byts: float, ops: float, ops_per_s: float) -> tuple:
 
 def timings(rng, errs: dict, launches: dict, smi: str) -> list:
     phase(f"times on {smi} (CUDA events, median of repeats)")
-    out = []
-    plan = build_plan(4096, pr.ntt_primes(2, bits=31), "cuda")
-    x = random_residues(rng, plan, (ENC_BATCH, 2, 4096))
-    rows = ENC_BATCH * 2
-    # Each row read and written once, plus both limbs' (4N) tables; three
-    # 32-bit multiplies per Shoup product: N/2 log2 N butterflies and N twists.
-    n = plan.n
-    bound_ms, kind, why = bound(2 * rows * n * 4 + 2 * 4 * n * 4,
-                                3 * rows * (n // 2 * plan.log_n + n), INT32_MUL_PER_S)
-    for name, kern, ref in (("ntt_fwd", ntt_cuda.ntt_fwd, ntt_cuda.ntt_fwd_ref),
-                            ("ntt_inv", ntt_cuda.ntt_inv, ntt_cuda.ntt_inv_ref)):
-        ms = cuda_ms(lambda: kern(plan, x))
-        plain = cuda_ms(lambda: ref(plan, x), reps=3, warmup=1)
-        print(f"  {name} {rows} rows x N=4096: {ms:.4f} ms; plain {plain:.3f} ms; "
-              f"bound {bound_ms:.4f} ms ({why})")
-        out.append(dict(name=name, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
-                        library_ms=None))
-
+    out = k2_timings(rng)
     slots = pack.slots_per_ct(get_params(PRESET).n, DIM)
     out.append(pack_score_timing(N_DOCS // slots))
     # One shard of the multi-shard store: 3125 groups padded to 3128, over 8.
     pack_score_timing(-(-N_DOCS_SHARDED // slots // PAD_GROUPS) * PAD_GROUPS // N_SHARDS)
-    out += cyclic_timings(rng)
     out.append(all_to_all_timings())
     for row in out:
         src, rep = KERNELS[row["name"]]
         row.update(route="cuda", source=src, replaces=rep,
                    launches=launches.get(row["name"], 0), max_abs_err=errs[row["name"]])
     return out
+
+
+# K2's timed shapes, as the paths launch it: (what, primes, batch shape, N).
+K2_SHAPES = (("an encrypt batch", "two", (ENC_BATCH, 2), 4096),
+             ("a query's rows", "two", (2,), 4096),
+             (f"a {RING} polynomial", "ring", (12,), 16384),
+             (f"one shard's transform at {RING}", "ring",
+              (get_params(RING).n // RING_N1 // N_SHARDS, 12), RING_N1))
+
+
+def k2_times(rng) -> list:
+    """K2 at the paths' shapes: CUDA events around the wrapper and device time
+    per call (torch.profiler), one dict per entry and shape.
+
+    The forward and inverse at one 8192-document encrypt batch (16,384 rows
+    x N = 4096), a query's 2 rows and one ring-16384 polynomial (12 limbs x
+    16384); the cyclic entries at one shard's four-step transform (192 rows
+    x 128).  Uses only what every tree of the port has, so that --k2-times
+    times an earlier tree the same way.
+    """
+    primes = {"two": pr.ntt_primes(2, bits=31), "ring": get_params(RING).primes}
+    out = []
+    for what, which, lead, n in K2_SHAPES:
+        l = lead[-1]
+        plan = build_plan(n, primes[which][:l], DEVICE)
+        x = random_residues(rng, plan, lead + (n,))
+        for name, kern, ref in NTT_ENTRIES[2:] if n == RING_N1 else NTT_ENTRIES[:2]:
+            ms = cuda_ms(lambda: kern(plan, x), reps=20)
+            dev = device_us_per_call(lambda: kern(plan, x), "ntt_", calls=20)
+            out.append(dict(name=name, what=what, rows=x.numel() // n, l=l, n=n, ms=ms,
+                            dev_us=dev, plan=plan, x=x, kern=kern, ref=ref))
+    return out
+
+
+def k2_timings(rng) -> list:
+    """K2's times (`k2_times`), each checked bit-exact on the inputs it was
+    timed on, beside its launch, its plain version and its bound.
+
+    The bound counts each row read and written once plus the limbs' tables
+    (4N words a limb, 2N for the cyclic entries), and three 32-bit
+    multiplies per Shoup product (N/2 log2 N butterflies, and N twists a
+    row but for the cyclic entries).  The JSON rows: the forward and
+    inverse at one encrypt batch, the cyclic entries at one shard.
+    """
+    out = []
+    for t in k2_times(rng):
+        name, plan, x, rows, l, n = t["name"], t["plan"], t["x"], t["rows"], t["l"], t["n"]
+        e = max_abs_err(t["kern"](plan, x), t["ref"](plan, x))
+        check(e == 0, f"{name} {rows} rows x N={n} (the timed inputs): max abs err {e}")
+        twisted = not name.startswith("ntt_cyclic")
+        bound_ms, kind, why = bound(2 * rows * n * 4 + l * (4 if twisted else 2) * n * 4,
+                                    3 * rows * (n // 2 * plan.log_n + (n if twisted else 0)),
+                                    INT32_MUL_PER_S)
+        plain = cuda_ms(lambda: t["ref"](plan, x), reps=3, warmup=1)
+        s = ntt_cuda.launch_shape(rows, l, n)
+        print(f"  {name} {rows} rows x N={n} ({t['what']}; {s.regime}, R={s.rows_per_block}, "
+              f"C={s.cluster}, {s.blocks} blocks of {s.threads}): {t['ms']:.4f} ms (CUDA "
+              f"events around the wrapper; device time per call {fmt_us(t['dev_us'])}); "
+              f"bit-exact; plain {plain:.3f} ms; bound {bound_ms:.5f} ms ({why})")
+        if rows == ENC_BATCH * 2 or not twisted:
+            out.append(dict(name=name, ms=t["ms"], plain_ms=plain, bound_ms=bound_ms,
+                            bound_by=kind, library_ms=None))
+    return out
+
+
+def k2_only(tree: str) -> None:
+    """--k2-times: K2's times at the paths' shapes, one JSON line each."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    smi = card()
+    for t in k2_times(np.random.default_rng(0)):
+        print(json.dumps({"tree": tree, "entry": t["name"], "rows": t["rows"], "limbs": t["l"],
+                          "n": t["n"], "ms": t["ms"], "device_us": t["dev_us"], "card": smi}),
+              flush=True)
 
 
 def pack_score_timing(g: int) -> dict:
@@ -756,34 +940,6 @@ def pack_score_timing(g: int) -> dict:
           f"{ops / 1e9:.2f} G int8 ops)")
     return dict(name="pack_score", ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
                 library_ms=lib)
-
-
-def cyclic_timings(rng) -> list:
-    """The cyclic entry at one shard's column (and row) transform of the ring-16384 NTT."""
-    primes = get_params(RING).primes
-    n, l = RING_N1, len(primes)
-    plan = build_plan(n, primes, DEVICE)
-    rows = get_params(RING).n // RING_N1 // N_SHARDS * l
-    x = random_residues(rng, plan, (rows // l, l, n))
-    # Each row read and written once, plus the stage twiddles and companions
-    # (2N words a limb); three 32-bit multiplies per butterfly.
-    bound_ms, kind, why = bound(2 * rows * n * 4 + l * 2 * n * 4,
-                                3 * rows * (n // 2 * plan.log_n), INT32_MUL_PER_S)
-    out = []
-    for name, kern, ref, symbol in (
-            ("ntt_cyclic_fwd", ntt_cuda.cyclic_fwd, ntt_cuda.cyclic_fwd_ref,
-             "ntt_fwd_kernel<false>"),
-            ("ntt_cyclic_inv", ntt_cuda.cyclic_inv, ntt_cuda.cyclic_inv_ref,
-             "ntt_inv_kernel<false>")):
-        ms = cuda_ms(lambda: kern(plan, x), reps=50)
-        plain = cuda_ms(lambda: ref(plan, x), reps=10)
-        dev = device_us_per_call(lambda: kern(plan, x), symbol)
-        print(f"  {name} {rows} rows x N={n} (one shard's transform at {RING}): {ms:.4f} ms "
-              f"(CUDA events around the wrapper; device time per call {fmt_us(dev)}); "
-              f"plain {plain:.3f} ms; bound {bound_ms:.5f} ms ({why})")
-        out.append(dict(name=name, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
-                        library_ms=None))
-    return out
 
 
 def device_us_per_call(fn, kernel: str, calls: int = 10):
@@ -896,4 +1052,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if _ARGS[:1] == ["--k2-times"]:
+        k2_only(TREE)
+    else:
+        main()

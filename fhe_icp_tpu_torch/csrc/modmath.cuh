@@ -12,15 +12,17 @@
 
 namespace fhe {
 
-// (a + b) mod p for a, b in [0, p).
+// (a + b) mod p for a, b in [0, p): s < 2p, and s - p wraps when s < p,
+// so the unsigned minimum is the residue (one VIADDMNMX with the add).
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
-  uint32_t s = a + b;
-  return s >= p ? s - p : s;
+  const uint32_t s = a + b;
+  return min(s, s - p);
 }
 
-// (a - b) mod p for a, b in [0, p).
+// (a - b) mod p for a, b in [0, p): a - b wraps when a < b, a - b + p not.
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
-  return a >= b ? a - b : a + (p - b);
+  const uint32_t d = a - b;
+  return min(d, d + p);
 }
 
 // (-a) mod p for a in [0, p).
@@ -43,9 +45,8 @@ __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t p,
 // a*w - q*p lies in [0, 2p), so it is computed modulo 2^32 on purpose.
 __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w, uint32_t w_sh,
                                               uint32_t p) {
-  uint32_t q = __umulhi(a, w_sh);
-  uint32_t r = a * w - q * p;
-  return r >= p ? r - p : r;
+  const uint32_t r = a * w - __umulhi(a, w_sh) * p;
+  return min(r, r - p);
 }
 
 // x mod p for any uint32 x, with mu = floor(2^32/p).

@@ -2,7 +2,8 @@
 
 Every `csrc/*.cu` is compiled by `nvcc` for `sm_90a`, one process per
 source, all started together, then linked into one shared library with a
-plain C interface (`build/kernels/libfhe_kernels.so` at the repo root).
+plain C interface (`build/kernels/libfhe_kernels.so` at the repo root,
+with nvcc's output beside it in `build.log`).
 The library is loaded with `ctypes`; no PyTorch header is compiled, so a
 build takes seconds.  It is built once, at the first launch, and again
 only when a source is newer than the library.
@@ -33,6 +34,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libfhe_kernels.so"
+LOG_PATH = BUILD_DIR / "build.log"     # nvcc's output for the library beside it
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
@@ -40,10 +42,10 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as c_void_p).
 _SIGNATURES = {
-    "fhe_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fhe_ntt_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fhe_ntt_cyclic_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fhe_ntt_cyclic_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fhe_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fhe_ntt_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fhe_ntt_cyclic_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fhe_ntt_cyclic_inv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fhe_pack_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fhe_all_to_all": [_P, _P, _I, _P, _I, _L, _P],
     "fhe_enable_peer_access": [_I, _I],
@@ -67,13 +69,15 @@ def _nvcc() -> str:
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH if it is missing or stale.
 
-    Returns the compiler's output (ptxas register and shared-memory
-    report), or "" when the library was up to date.
+    Returns the compiler's output (ptxas register, stack and shared-memory
+    report) of the build that made the library: this one's, or the one kept
+    in LOG_PATH when the library was up to date.
     """
     sources = sorted(CSRC.glob("*.cu"))
     newest = max(f.stat().st_mtime for f in sources + sorted(CSRC.glob("*.cuh")))
-    if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
-        return ""
+    if (LIB_PATH.exists() and LOG_PATH.exists()
+            and LIB_PATH.stat().st_mtime >= newest):
+        return LOG_PATH.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     objs = [BUILD_DIR / (src.stem + ".o") for src in sources]
@@ -92,6 +96,7 @@ def build() -> str:
                           capture_output=True, text=True)
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    LOG_PATH.write_text("".join(log))
     os.replace(tmp, LIB_PATH)
     return "".join(log)
 

@@ -40,9 +40,10 @@ class NttPlan:
     All tensors are uint32.  Per-stage twiddles of stage `s` have shape
     (L, 1, N >> (s+1)) so they broadcast against data viewed as
     (..., L, B, 2, m).  `fwd_table`/`inv_table` pack, per limb, the twist,
-    its Shoup companion and every stage's twiddles and companions into one
-    (L, 4N) row for the kernel: [psi | psi_sh | tw | tw_sh], stage s at
-    offset N - (N >> s) of the twiddle blocks.
+    its Shoup companion and every stage's twiddles into one (L, 4N) row
+    for the kernel: [psi | psi_sh | (tw, tw_sh) pairs], stage s's twiddle j
+    as the pair at index N - (N >> s) + j of the last 2N words, so that one
+    8-byte load fetches a twiddle with its companion.
     """
 
     n: int
@@ -87,13 +88,11 @@ def _u32(a) -> np.ndarray:
 
 
 def _kernel_table(twist, twist_sh, stages, stages_sh, n: int) -> np.ndarray:
-    """(L, 4N): twist | twist companion | stage twiddles | companions."""
-    def cat(tabs):
-        out = np.zeros((len(tabs[0]), n), dtype=np.uint32)
-        out[:, : n - 1] = np.concatenate([np.stack(t) for t in tabs], axis=1)
-        return out
-    return np.concatenate([twist, twist_sh, cat(stages), cat(stages_sh)],
-                          axis=1)
+    """(L, 4N): twist | twist companion | (stage twiddle, companion) pairs."""
+    pairs = np.zeros((len(twist), n, 2), dtype=np.uint32)
+    for k, tabs in enumerate((stages, stages_sh)):
+        pairs[:, : n - 1, k] = np.concatenate([np.stack(t) for t in tabs], axis=1)
+    return np.concatenate([twist, twist_sh, pairs.reshape(len(twist), 2 * n)], axis=1)
 
 
 def build_plan(n: int, prime_list: Tuple[int, ...],

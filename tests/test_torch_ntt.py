@@ -61,15 +61,92 @@ def test_plan_tables_match(n):
 
 
 def test_kernel_table_layout():
-    """Stage s of the packed kernel table sits at offset N - (N >> s)."""
+    """Stage s's twiddle j and its companion are pair N - (N >> s) + j."""
     _, tp = _plans(512)
     n = tp.n
     for s in range(tp.log_n):
         off, m = n - (n >> s), n >> (s + 1)
-        _eq(tp.fwd_table[:, 2 * n + off: 2 * n + off + m], tp.fw_tw[s][:, 0].numpy())
-        _eq(tp.inv_table[:, 3 * n + off: 3 * n + off + m], tp.inv_sh[s][:, 0].numpy())
+        pairs = slice(2 * n + 2 * off, 2 * n + 2 * (off + m))
+        _eq(tp.fwd_table[:, pairs][:, 0::2], tp.fw_tw[s][:, 0].numpy())
+        _eq(tp.fwd_table[:, pairs][:, 1::2], tp.fw_sh[s][:, 0].numpy())
+        _eq(tp.inv_table[:, pairs][:, 0::2], tp.inv_tw[s][:, 0].numpy())
+        _eq(tp.inv_table[:, pairs][:, 1::2], tp.inv_sh[s][:, 0].numpy())
     _eq(tp.fwd_table[:, :n], tp.psi.numpy())
+    _eq(tp.fwd_table[:, n: 2 * n], tp.psi_sh.numpy())
+    _eq(tp.inv_table[:, :n], tp.psi_inv_n.numpy())
     _eq(tp.inv_table[:, n: 2 * n], tp.psi_inv_n_sh.numpy())
+    _eq(tp.fwd_table[:, 4 * n - 2:], np.zeros((2, 2), dtype=np.uint32))
+
+
+# Every (rows, L, N) the paths launch K2 with: keygen / encrypt batches /
+# the per-query row / decrypt at pairwise-4096, test-512's shapes, the
+# ring-16384 polynomial, a mod_switch limb, and the four-step NTT's column
+# and row transforms (cyclic, N = 16 .. 256).
+PATH_SHAPES = [(16384, 2, 4096), (2, 2, 4096), (2, 1, 4096), (16, 2, 4096), (64, 2, 512),
+               (4, 1, 512), (12, 12, 16384), (1, 1, 16384), (16384, 2, 16384),
+               (192, 12, 128), (96, 12, 128), (16 * 12, 12, 16), (4 * 12, 12, 256),
+               (10, 2, 32), (3, 1, 64), (16 * 6, 6, 8192)]
+
+
+def _assert_legal(s, rows, l, n):
+    """What csrc/ntt.cu's entry points accept, within the H100's limits."""
+    assert s.rows_per_block <= max(1, rows // l) or s.regime == "warp"
+    assert s.smem <= ntt_cuda.SMEM_PER_BLOCK and s.cluster in (1, 2, 4, 8, 16)
+    assert 32 <= s.threads <= 1024 and s.threads % 32 == 0
+    if s.regime == "warp":
+        assert n <= 256 and s.cluster == 1 and s.smem == 0
+        lanes = n // max(2, n // 32)
+        assert s.rows_per_block == s.threads // lanes and s.blocks * s.rows_per_block >= rows
+        return
+    m = n // s.cluster
+    assert n >= 512 and s.threads == min(m // 8, ntt_cuda.MAX_BLOCK_THREADS)
+    assert s.smem == s.rows_per_block * m * 4 and s.rows_per_block in (1, 2, 4, 8)
+    if s.cluster > 1:
+        assert s.rows_per_block == 1 and s.blocks == rows * s.cluster
+        assert m >= ntt_cuda.MIN_CLUSTER_WORDS
+    else:
+        assert s.blocks * s.rows_per_block >= rows
+
+
+@pytest.mark.parametrize("rows,l,n", PATH_SHAPES)
+def test_launch_shape_is_legal(rows, l, n):
+    s = ntt_cuda.launch_shape(rows, l, n)
+    _assert_legal(s, rows, l, n)
+    costs = ntt_cuda.launch_candidates(rows, l, n)
+    assert s in [c for _, c in costs] and min(cost for cost, _ in costs) == \
+        next(cost for cost, c in costs if c == s)
+
+
+@pytest.mark.parametrize("rows,l,n", PATH_SHAPES)
+def test_launch_candidates_are_legal(rows, l, n):
+    for _, s in ntt_cuda.launch_candidates(rows, l, n):
+        _assert_legal(s, rows, l, n)
+
+
+@pytest.mark.parametrize("rows,l,n", [(2, 2, 4096), (1, 1, 4096), (12, 12, 16384),
+                                      (2, 1, 16384), (4, 2, 8192)])
+def test_launch_shape_short_batches_use_clusters(rows, l, n):
+    assert ntt_cuda.launch_shape(rows, l, n).cluster > 1
+
+
+def test_launch_shape_many_rows_share_twiddles():
+    s = ntt_cuda.launch_shape(16384, 2, 4096)
+    assert s.cluster == 1 and s.rows_per_block > 1
+    # a ragged batch: rows of one limb that R does not divide
+    r = ntt_cuda.launch_shape(2 * 8191, 2, 4096)
+    assert r.rows_per_block > 1 and r.blocks == 2 * -(-8191 // r.rows_per_block)
+
+
+@pytest.mark.parametrize("rows,l,n", [(4, 2, 8), (4, 2, 65536), (4, 2, 3000), (5, 2, 512),
+                                      (0, 1, 512)])
+def test_launch_shape_refuses(rows, l, n):
+    with pytest.raises(ValueError):
+        ntt_cuda.launch_shape(rows, l, n)
+
+
+def test_local_passes():
+    """Radix-8 passes, then radix-4 ones so that no pass has stride 2."""
+    assert [ntt_cuda.local_passes(k) for k in (5, 6, 8, 9, 10, 12, 14)] == [2, 2, 3, 3, 4, 4, 5]
 
 
 @pytest.mark.parametrize("n", [512, 1024, 2048, 4096])
