@@ -58,7 +58,26 @@ Phases (any failure raises and the exit code is not 0):
    card this phase is skipped.  To run it alone on a host with several,
    call `device_and_build()` and then `cross_card(np.random.default_rng(0))`
    from Python (`python3 -c "import chip_smoke; ..."`).
-5. Times on the card (CUDA events, median of repeats after warm-up) of
+5. The compare path at full width (`compare_path`): (a) config 1, one
+   pairwise-4096 compare, relinearized and in degree 2, exact, noise
+   budget >= 2 bits after relinearization; (b) config 2, the 32 x 32
+   all-pairs matrix (1024 products, the keyswitch's batch >= 32 regime)
+   equal to docs @ docs.T; (c) the 2048 packed ciphertexts of phase 3's
+   store re-keyed to new keys (16-bit digits at batch 2048), a sample's
+   budget within 3 bits of the old one, then searched under the new key
+   (8 queries exact, top-10; outside the launch count, since it runs K1),
+   the old key's query operand wrong; (d) config 4, ring-16384 mul_ct ->
+   relinearize -> mod_switch -> decrypt_dot exact; (e) config 8,
+   galois-4096 `dot_ct_ct_slots(d=128)` with 16-bit-digit rotation keys,
+   slot [0, 0] exact.  Launch counts are zeroed before the cases: K2
+   forward and inverse must have risen, K1, K3 and K2's cyclic entries
+   must not have launched.  Then each case's host time (median of 7 after
+   the first), K2 launches and device time a run, the card's busy time
+   and idle share, and both branches of `arith._REUSE_MIN_BATCH` at batch
+   32 for (b) and (c).  Phase 2 holds K2 on this path's plans: the hybrid
+   plans (pairwise-4096 and ring-16384), the digit plans, the special
+   prime's and galois-4096's plan over t.
+6. Times on the card (CUDA events, median of repeats after warm-up) of
    each kernel, its plain version and, where one PyTorch call computes
    the same function (the int8 matmul alone through `torch._int_mm`; one
    strided `copy_` for the all-to-all), that call, beside the least time
@@ -79,6 +98,7 @@ last line is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -97,9 +117,9 @@ TREE = os.path.abspath(_ARGS[1] if _ARGS[:1] == ["--k2-times"] and len(_ARGS) > 
 sys.path.insert(0, TREE)
 
 from fhe_icp_tpu_torch import entry, kernels  # noqa: E402
-from fhe_icp_tpu_torch.ops import arith, ntt_cuda, pack, pack_cuda  # noqa: E402
+from fhe_icp_tpu_torch.ops import arith, galois, noise, ntt_cuda, pack, pack_cuda  # noqa: E402
 from fhe_icp_tpu_torch.ops import primes as pr  # noqa: E402
-from fhe_icp_tpu_torch.ops.cipher import Ciphertext, decrypt_coeff  # noqa: E402
+from fhe_icp_tpu_torch.ops.cipher import Ciphertext, decrypt_coeff, rekey_keygen  # noqa: E402
 from fhe_icp_tpu_torch.ops.context import CryptoContext  # noqa: E402
 from fhe_icp_tpu_torch.ops.modmath import mont_mul, to_mont  # noqa: E402
 from fhe_icp_tpu_torch.ops.ntt import build_plan  # noqa: E402
@@ -122,6 +142,13 @@ N_QUERIES, TOP_K = 8, 10
 N_SHARDS, N_DOCS_SHARDED, PAD_GROUPS = 8, 100_000, 8
 RING, RING_N1 = "ring-16384", 128
 
+# The compare path: BASELINE configs 1, 2, 4 and 8 and the store rotation.
+COMPARE_PAIRS = 32                 # config 2: the 32 x 32 all-pairs matrix
+GALOIS = "galois-4096"             # config 8: the slot-packed rotate-and-sum dot
+REKEY_SAMPLE = 64                  # store ciphertexts whose budget is read around re-keying
+RELIN_BUDGET_BITS, REKEY_COST_BITS = 2, 3
+REPS = 7                           # host-clock repeats after the first
+
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -142,6 +169,8 @@ KERNELS = {
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pack_score")
+COMPARE_PATH_KERNELS = ("ntt_fwd", "ntt_inv")
+NOT_ON_COMPARE_PATH = ("pack_score", "all_to_all", "ntt_cyclic_fwd", "ntt_cyclic_inv")
 SHARD_PATH_KERNELS = ("all_to_all", "pack_score", "ntt_fwd", "ntt_cyclic_fwd",
                       "ntt_cyclic_inv")
 # The multi-shard path runs 16 four-step transforms (4 round trips, 2
@@ -286,8 +315,58 @@ def kernels_vs_plain(rng) -> dict:
           "mod_switch on the card differs from the CPU")
     check(torch.equal(rt.decrypt(want), m), "mod_switch decrypt")
     print("  mod_switch_to(2) at test-512-mult: card == CPU, decrypts exactly")
+    compare_plans_vs_plain(rng, errs)
     all_to_all_vs_plain(rng, errs)
     return errs
+
+
+@functools.lru_cache(maxsize=None)
+def runtime(preset: str, rlk_levels: tuple) -> FheRuntime:
+    """One runtime per preset on the card: phase 2 holds K2 on its plans, and the
+    compare path reuses them (a ring-16384 plan takes seconds of host work)."""
+    return FheRuntime(preset, rlk_levels=list(rlk_levels), device=DEVICE)
+
+
+def compare_plans_vs_plain(rng, errs: dict) -> None:
+    """K2 forward and inverse on the compare path's plans and shapes, bit-exact.
+
+    The hybrid plans (the chain with the special prime P last) of
+    pairwise-4096 at level 2 and ring-16384 at level 12, pairwise-4096's
+    digit plans (chain + P minus limb j: not a prefix of the chain), the
+    one-prime plan of P, galois-4096's plan over t (22 bits), and the
+    special limb sliced out of a hybrid batch (a view the wrapper copies).
+    """
+    ctx, ring, gctx = (runtime(pre, (lv,)).ctx for pre, lv in
+                       ((PRESET, 2), (RING, 12), (GALOIS, 2)))
+    store = N_DOCS // pack.slots_per_ct(ctx.n, DIM)
+    pairs = COMPARE_PAIRS * COMPARE_PAIRS
+    sp_plan = arith._single_prime_plan(ctx, ctx.params.special_prime)
+    hyb = ctx.hybrid(2).plan
+    cases = [("hybrid, one compare's digits", hyb, (2, 3)),
+             ("hybrid, one rotation's 16-bit digits", hyb, (4, 3)),
+             ("hybrid, the store's 16-bit digits", hyb, (4 * store, 3)),
+             (f"{RING} hybrid, one compare's digits", ring.hybrid(12).plan, (12, 13)),
+             (f"{RING} hybrid, divide-by-P", ring.hybrid(12).plan, (2, 13)),
+             ("digit plan j=0, all pairs", arith._digit_plan(ctx, 2, 0), (pairs, 2)),
+             ("digit plan j=1, all pairs", arith._digit_plan(ctx, 2, 1), (pairs, 2)),
+             ("P, all pairs' divide-by-P", sp_plan, (2 * pairs, 1)),
+             ("P, the store's divide-by-P", sp_plan, (2 * store, 1)),
+             ("t, one slot vector", galois._t_plan(gctx), (1,)),
+             ("t, two slot vectors", galois._t_plan(gctx), (2, 1))]
+    for what, plan, lead in cases:
+        x = random_residues(rng, plan, lead + (plan.n,))
+        for name, kern, ref in NTT_ENTRIES[:2]:
+            e = max_abs_err(kern(plan, x), ref(plan, x))
+            check(e == 0, f"{name} on the {what} plan {lead}: max abs err {e}")
+            errs[name] = max(errs[name], e)
+    x = random_residues(rng, hyb, (64, 3, ctx.n))
+    view = x[:, 2:, :]
+    for name, kern, ref in NTT_ENTRIES[:2]:
+        e = max_abs_err(kern(sp_plan, view), ref(sp_plan, view.contiguous()))
+        check(e == 0, f"{name} on the special limb of a hybrid batch: max abs err {e}")
+    print("  K2 fwd and inv bit-exact on the compare path's plans: "
+          + "; ".join(f"{what} {lead}" for what, _, lead in cases)
+          + "; the special limb sliced from (64, 3, 4096)")
 
 
 NTT_ENTRIES = (("ntt_fwd", ntt_cuda.ntt_fwd, ntt_cuda.ntt_fwd_ref),
@@ -516,8 +595,10 @@ def main_path(rng) -> dict:
     print(f"  launches on the main path: {launches}")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     query_breakdown(ctx, sk, doc_op, queries, ct.pt_corr)
+    # The packed store, for the compare path's store rotation.
+    store = dict(rt=rt, ct=ct, docs=docs, queries=queries)
     return dict(launches=launches, query_ms=q_ms, encrypt_s=t_enc, build_s=t_build,
-                keys_s=t_keys)
+                keys_s=t_keys, store=store)
 
 
 def query_breakdown(ctx, sk, doc_op, queries, pt_corr) -> None:
@@ -556,7 +637,7 @@ def query_breakdown(ctx, sk, doc_op, queries, pt_corr) -> None:
     device_view(lambda i: one_query(qs[i], lambda: None), len(qs), "query")
 
 
-def device_view(run, count: int, unit: str) -> None:
+def device_view(run, count: int, unit: str, top: int = 8) -> None:
     """Busy time, idle share and top kernels of `count` back-to-back run(i) (torch.profiler).
 
     Busy time is the union of the device activity intervals; the idle
@@ -589,7 +670,7 @@ def device_view(run, count: int, unit: str) -> None:
     print(f"  device view (torch.profiler, {unit} x {count}): busy {busy / 1e3:.3f} ms "
           f"of a {window_us / 1e3:.3f} ms window, idle share {1 - busy / window_us:.3f}; "
           f"{len(dev)} device activities")
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"    {t / 1e3 / count:.4f} ms/{unit}  x{c / count:g}  {name[:90]}")
 
 
@@ -780,6 +861,237 @@ def dist_vs_single(dist: dict, case: dict) -> None:
     print(f"  forward NTT of one (L={case['l']}, N={case['n']}) polynomial: distributed over "
           f"{N_SHARDS} shards {ms_d:.4f} ms (CUDA events; host clock {host_d:.4f} ms), "
           f"single-card K2 {ms_s:.4f} ms")
+
+
+# ---------------------------------------------------------------------------
+# The compare path: ct x ct products, hybrid keyswitching (relinearization,
+# re-keying, Galois rotations) and noise, at full width.
+# ---------------------------------------------------------------------------
+
+
+def k2_count() -> int:
+    return kernels.launches["ntt_fwd"] + kernels.launches["ntt_inv"]
+
+
+def center_t(x: int, t: int) -> int:
+    r = x % t
+    return r - t if r > t // 2 else r
+
+
+def compare_path(rng, store: dict) -> dict:
+    """Cases (a)-(e) once with the launch counts zeroed, then the re-keyed
+    store's search (K1, outside the count), then each case's times."""
+    phase(f"compare path: {PRESET} compare and {COMPARE_PAIRS} x {COMPARE_PAIRS} all-pairs, "
+          f"re-keying the {N_DOCS}-document store, the {RING} chain, the {GALOIS} slot dot")
+    pair, docs, ring_pair, slot_pair = (quantized_unit(rng, (k, DIM))
+                                        for k in (2, COMPARE_PAIRS, 2, 2))
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t_start = time.perf_counter()
+    cases = []
+    for fn, arg in ((single_compare, pair), (all_pairs, docs), (store_rotation, store),
+                    (ring_chain, ring_pair), (slot_dot, slot_pair)):
+        k0, t0 = k2_count(), time.perf_counter()
+        cases.append(fn(arg))
+        torch.cuda.synchronize()
+        print(f"    K2 launches in this case (keys and inputs included): {k2_count() - k0}; "
+              f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in COMPARE_PATH_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} not launched on the compare path")
+    for name in NOT_ON_COMPARE_PATH:
+        check(launches.get(name, 0) == 0, f"kernel {name} launched on the compare path")
+    print(f"  launches on the compare path: {launches}; path "
+          f"{time.perf_counter() - t_start:.2f} s")
+    rekeyed_search(cases[2])
+    for case in cases:
+        case_times(case)
+    for case in cases[1:3]:
+        reuse_threshold(*case["threshold"])
+    print(f"  compare phase, its times included: {time.perf_counter() - t_start:.2f} s")
+    return dict(launches=launches)
+
+
+def single_compare(pair: np.ndarray) -> dict:
+    """(a) Config 1: one compare, relinearized (bench.py's gate 2) and in degree 2
+    (the CLI compare), decrypted by single coefficient; budget >= 2 bits."""
+    rt = runtime(PRESET, (2,))
+    rt.generate_keys(seed=0)
+    ct_a = rt.encrypt_vector(pair[0], seed=2)
+    ct_b = rt.encrypt_vector(pair[1], seed=3, rev=True)
+    want = int(pair[0].astype(np.int64) @ pair[1])
+    prod = rt.dot_ct_ct(ct_a, ct_b)
+    got = int(rt.decrypt_dot(prod, DIM))
+    got2 = int(rt.decrypt_dot(rt.dot_ct_ct(ct_a, ct_b, relinearize=False), DIM))
+    check(got == want and got2 == want, f"compare {got} / degree 2 {got2}, want {want}")
+    budget = noise.noise_budget_bits(rt.ctx, rt.keys.sk, prod)
+    check(budget >= RELIN_BUDGET_BITS, f"post-relinearization budget {budget} bits")
+    print(f"  (a) config 1: compare {got} == a . b relinearized and in degree 2; noise budget "
+          f"after relinearization {budget} bits")
+    return dict(name="(a) config 1", runs={
+        "relinearized compare + decrypt_dot":
+            lambda: rt.decrypt_dot(rt.dot_ct_ct(ct_a, ct_b), DIM).cpu(),
+        "degree-2 compare + decrypt_dot (the CLI)":
+            lambda: rt.decrypt_dot(rt.dot_ct_ct(ct_a, ct_b, relinearize=False), DIM).cpu()})
+
+
+def all_pairs(docs: np.ndarray) -> dict:
+    """(b) Config 2: fwd[:, None] x rev[None, :], 1024 products (the batch >= 32
+    regime), relinearized and in degree 2; the matrix equals docs @ docs.T."""
+    rt = runtime(PRESET, (2,))
+    fwd = rt.encrypt_vector(docs, seed=5)
+    rev = rt.encrypt_vector(docs, seed=6, rev=True)
+    a = Ciphertext(fwd.data[:, None], fwd.level)
+    b = Ciphertext(rev.data[None], rev.level)
+    want = docs.astype(np.int64) @ docs.astype(np.int64).T
+    for relin in (True, False):
+        mat = rt.decrypt_dot(rt.dot_ct_ct(a, b, relinearize=relin), DIM).cpu().numpy()
+        check((mat == want).all(), f"all-pairs matrix (relinearize={relin}): "
+              f"{(mat != want).sum()} entries differ from docs @ docs.T")
+    print(f"  (b) config 2: the {len(docs)} x {len(docs)} matrix == docs @ docs.T, "
+          "relinearized and in degree 2")
+    prod32 = arith.mul_ct(rt.ctx, fwd, rev)          # 32 products: the threshold's batch
+    n = len(docs) ** 2
+    return dict(name="(b) config 2", runs={
+        f"{n} relinearized products + decrypt_dot":
+            lambda: rt.decrypt_dot(rt.dot_ct_ct(a, b), DIM).cpu(),
+        f"{n} degree-2 products + decrypt_dot":
+            lambda: rt.decrypt_dot(rt.dot_ct_ct(a, b, relinearize=False), DIM).cpu()},
+        threshold=(f"relinearize {COMPARE_PAIRS} products",
+                   lambda: arith.relinearize(rt.ctx, rt.keys.rlk, prod32).data))
+
+
+def store_rotation(store: dict) -> dict:
+    """(c) The main path's packed store re-keyed to keys from seed 1 (16-bit
+    digits at batch 2048); a sample's budget within 3 bits of the old one."""
+    rt, ct = store["rt"], store["ct"]
+    ctx = rt.ctx
+    new = FheRuntime(PRESET, rlk_levels=[], device=DEVICE)
+    new.generate_keys(seed=1)
+    ksk = rekey_keygen(ctx, rt.generator(2), rt.keys.sk, new.keys.sk, levels=[ct.level])[ct.level]
+    rekeyed = arith.rekey(ctx, ksk, ct)
+
+    def sample(c):
+        return Ciphertext(c.data[:REKEY_SAMPLE], c.level, pt_corr=c.pt_corr)
+    before = noise.noise_budget_bits_batch(ctx, rt.keys.sk, sample(ct))
+    after = noise.noise_budget_bits_batch(ctx, new.keys.sk, sample(rekeyed))
+    check((after >= before - REKEY_COST_BITS).all(),
+          f"re-keying cost more than {REKEY_COST_BITS} bits: before {before}, after {after}")
+    print(f"  (c) store rotation: {ct.data.shape[0]} packed ciphertexts re-keyed (key "
+          f"{tuple(ksk.shape)}); noise budget of {REKEY_SAMPLE} of them {before.min()}.."
+          f"{before.max()} bits before, {after.min()}..{after.max()} after")
+    ct32 = Ciphertext(ct.data[:COMPARE_PAIRS], ct.level, pt_corr=ct.pt_corr)
+    return dict(name="(c) store rotation", ctx=ctx, old_sk=rt.keys.sk, new_sk=new.keys.sk,
+                rekeyed=rekeyed, docs=store["docs"], queries=store["queries"],
+                runs={f"re-key {ct.data.shape[0]} packed ciphertexts":
+                      lambda: arith.rekey(ctx, ksk, ct).data},
+                threshold=(f"re-key {COMPARE_PAIRS} packed ciphertexts",
+                           lambda: arith.rekey(ctx, ksk, ct32).data))
+
+
+def rekeyed_search(case: dict) -> None:
+    """The re-keyed store searched under the new key: every score exact, every
+    top-10 right; the old key's query operand gives wrong scores."""
+    ctx, ct, docs, queries = case["ctx"], case["rekeyed"], case["docs"], case["queries"]
+    doc_op = pack.make_packed_doc_operand(ctx, ct.data, ct.level)
+    want_all = docs.astype(np.int64) @ queries.astype(np.int64).T
+    for qi, q in enumerate(queries):
+        q_op = pack.make_packed_query_operand(ctx, case["new_sk"], torch.from_numpy(q), DIM,
+                                              ct.level)
+        scores = pack.packed_scores(ctx, doc_op, q_op, ct.pt_corr).reshape(-1)
+        got, want = scores.cpu().numpy().astype(np.int64), want_all[:, qi]
+        check((got == want).all(), f"re-keyed store, query {qi}: {(got != want).sum()} scores "
+              "differ from docs @ query")
+        top = torch.topk(scores, TOP_K)
+        check(sorted(top.values.cpu().tolist()) == sorted(np.sort(want)[-TOP_K:].tolist()),
+              f"re-keyed store, query {qi}: top-{TOP_K} differs from the oracle's")
+    old = pack.make_packed_query_operand(ctx, case["old_sk"], torch.from_numpy(queries[0]), DIM,
+                                         ct.level)
+    wrong = (pack.packed_scores(ctx, doc_op, old, ct.pt_corr).reshape(-1).cpu().numpy()
+             != want_all[:, 0]).sum()
+    check(wrong > len(docs) // 2, f"the old key's query still scores {len(docs) - wrong} "
+          "documents right")
+    print(f"  (c) the re-keyed store searched under the new key: {len(queries)} queries exact "
+          f"(scores == docs @ query, top-{TOP_K}); the old key's query operand gets {wrong} of "
+          f"{len(docs)} scores wrong")
+
+
+def ring_chain(pair: np.ndarray) -> dict:
+    """(d) Config 4: ring-16384, mul_ct -> relinearize -> mod_switch -> decrypt_dot."""
+    rt = runtime(RING, (12,))
+    rt.generate_keys(seed=0)
+    ctx = rt.ctx
+    ct_a = rt.encrypt_vector(pair[0], seed=8)
+    ct_b = rt.encrypt_vector(pair[1], seed=9, rev=True)
+
+    def run():
+        prod = arith.relinearize(ctx, rt.keys.rlk, arith.mul_ct(ctx, ct_a, ct_b))
+        return rt.decrypt_dot(arith.mod_switch(ctx, prod), DIM).cpu()
+    got, want = int(run()), int(pair[0].astype(np.int64) @ pair[1])
+    check(got == want, f"{RING} chain: {got}, want {want}")
+    print(f"  (d) config 4: {RING} (N={ctx.n}, L={ctx.n_limbs}) mul_ct -> relinearize -> "
+          f"mod_switch -> decrypt_dot == a . b ({got})")
+    return dict(name="(d) config 4", runs={"mul + relinearize + mod_switch + decrypt_dot": run})
+
+
+def slot_dot(pair: np.ndarray) -> dict:
+    """(e) Config 8: galois-4096, dot_ct_ct_slots(d=128) with 16-bit-digit
+    rotation keys: log2(128) = 7 rotations; slot [0, 0] exact."""
+    rt = runtime(GALOIS, (2,))
+    rt.generate_keys(seed=0)
+    half = rt.ctx.n // 2
+    va, vb = np.zeros((2, 2, half), np.int32)
+    va[0, :DIM], vb[0, :DIM] = pair
+    sa, sb = rt.encrypt_slots(va, seed=1), rt.encrypt_slots(vb, seed=2)
+    rt.rotation_keys(seed=3)
+    out = rt.dot_ct_ct_slots(sa, sb, d=DIM)
+    got = int(rt.decrypt_slots(out)[0, 0])
+    want = center_t(int(pair[0].astype(np.int64) @ pair[1]), rt.ctx.t)
+    check(got == want, f"{GALOIS} slot dot: {got}, want {want}")
+    budget = noise.noise_budget_bits(rt.ctx, rt.keys.sk, out, max_coeffs=32)
+    print(f"  (e) config 8: {GALOIS} (t={rt.ctx.t}) dot_ct_ct_slots(d={DIM}), "
+          f"{DIM.bit_length() - 1} rotations: slot [0, 0] == a . b mod t ({got}); noise budget "
+          f"{budget} bits")
+    return dict(name="(e) config 8", runs={
+        f"dot_ct_ct_slots(d={DIM}) + decrypt_slots":
+            lambda: rt.decrypt_slots(rt.dot_ct_ct_slots(sa, sb, d=DIM)).cpu()})
+
+
+def case_times(case: dict) -> None:
+    """Host ms (median of 7 after the first), K2 launches and device time a run,
+    and the card's busy time and idle share (torch.profiler) over 3 runs."""
+    for label, fn in case["runs"].items():
+        torch.cuda.synchronize()
+        k0 = k2_count()
+        fn()
+        torch.cuda.synchronize()
+        per_run = k2_count() - k0
+        ms = host_ms(fn, reps=REPS)
+        dev = device_us_per_call(fn, "ntt_", calls=3)
+        print(f"  {case['name']}, {label}: {ms:.3f} ms (host clock, median of {REPS} after the "
+              f"first); K2 {per_run} launches a run, device time {fmt_us(dev)} a run")
+        device_view(lambda i: fn(), 3, "run", top=3)
+
+
+def reuse_threshold(label: str, fn) -> None:
+    """Both branches of `_REUSE_MIN_BATCH` at its batch, 32: JAX's threshold (the
+    per-digit plans and the special limb alone in the division) against the
+    small-batch branches everywhere.  Recorded only: the threshold stays 32."""
+    saved, out, times = arith._REUSE_MIN_BATCH, {}, {}
+    for branch, value in ((f"at JAX's threshold {saved}", saved),
+                          ("small-batch branches", 1 << 30)):
+        arith._REUSE_MIN_BATCH = value
+        try:
+            out[branch] = fn()
+            times[branch] = (host_ms(fn, reps=REPS), device_us_per_call(fn, "ntt_", calls=3))
+        finally:
+            arith._REUSE_MIN_BATCH = saved
+    a, b = out.values()
+    check(torch.equal(a, b), f"{label}: the two branches give different integers")
+    print(f"  _REUSE_MIN_BATCH, {label}: " + "; ".join(
+        f"{branch} {ms:.3f} ms (host clock), K2 device time {fmt_us(dev)}"
+        for branch, (ms, dev) in times.items()) + "; identical integers")
 
 
 def cross_card(rng) -> None:
@@ -1038,10 +1350,14 @@ def main() -> None:
     # the multi-shard path builds its own.
     torch.cuda.empty_cache()
     shard_run = multi_shard_path(rng)
+    compare_run = compare_path(rng, run.pop("store"))
+    torch.cuda.empty_cache()
     cross_card(rng)
     launches = {**run["launches"],
                 **{k: shard_run["launches"].get(k, 0) for k in ("all_to_all", "ntt_cyclic_fwd",
                                                                 "ntt_cyclic_inv")}}
+    for k in COMPARE_PATH_KERNELS:
+        launches[k] = launches.get(k, 0) + compare_run["launches"].get(k, 0)
     rows = timings(rng, errs, launches, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,8 +3,10 @@
 Both sides exchange plain numpy arrays, so this module imports neither
 JAX nor the JAX package.  Keys use the JAX key-file layout: `s`,
 `s_ntt_mont`, `s2_ntt_mont`, `pk_b`, `pk_a` and one `rlk_<level>` array
-per relinearization level.  Ciphertexts are (..., k, L, N) uint32 with
-their `level` and `pt_corr`.
+per relinearization level.  Re-key keys go by level as `ksk_<level>` (the
+JAX package's re-key file), Galois keys by element and level as
+`gal_<g>_<level>`.  Ciphertexts are (..., k, L, N) uint32 with their
+`level` and `pt_corr`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from .devices import target
 from .ops.cipher import Ciphertext, KeySet, PublicKey, SecretKey
 from .ops.context import CryptoContext
+from .ops.galois import GaloisKeys
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -54,6 +57,34 @@ def keys_to_arrays(keys: KeySet) -> Dict[str, np.ndarray]:
            "pk_a": keys.pk.a_ntt.cpu().numpy()}
     out.update({f"rlk_{lv}": rk.cpu().numpy() for lv, rk in keys.rlk.items()})
     return out
+
+
+def rekey_keys_from_arrays(arrays: Mapping[str, np.ndarray],
+                           device: torch.device | str = "cuda") -> Dict[int, torch.Tensor]:
+    """{level: key} from `ksk_<level>` arrays, on the card unless `device` names another."""
+    device = target(device, "rekey_keys_from_arrays")
+    return {int(k.split("_", 1)[1]): _tensor(v, np.uint32, device)
+            for k, v in arrays.items() if k.startswith("ksk_")}
+
+
+def rekey_keys_to_arrays(ksks: Mapping[int, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {f"ksk_{lv}": v.cpu().numpy() for lv, v in ksks.items()}
+
+
+def galois_keys_from_arrays(arrays: Mapping[str, np.ndarray],
+                            device: torch.device | str = "cuda") -> GaloisKeys:
+    """GaloisKeys from `gal_<g>_<level>` arrays, on the card unless `device` names another."""
+    device = target(device, "galois_keys_from_arrays")
+    keys = {}
+    for k, v in arrays.items():
+        if k.startswith("gal_"):
+            g, lv = k.split("_")[1:]
+            keys[(int(g), int(lv))] = _tensor(v, np.uint32, device)
+    return GaloisKeys(keys)
+
+
+def galois_keys_to_arrays(gkeys: GaloisKeys) -> Dict[str, np.ndarray]:
+    return {f"gal_{g}_{lv}": v.cpu().numpy() for (g, lv), v in gkeys.keys.items()}
 
 
 def ciphertext_from_array(data: np.ndarray, level: int, pt_corr: int = 1,

@@ -29,6 +29,31 @@ from .params import CryptoParams
 
 
 @dataclass(frozen=True)
+class HybridTables:
+    """Hybrid-keyswitch tables for one level: primes[0:l] + special P.
+
+    The keyswitch key lives over the extended chain (l+1 limbs, special
+    prime last); after digit accumulation the result is divided by P with
+    the rounding of modulus switching.  The key encrypts P * target, so the
+    division leaves the message term intact.
+    """
+
+    l: int
+    plan: NttPlan                 # NTT plan over primes[0:l] + (P,)
+    p: torch.Tensor               # (l+1, 1) extended prime column
+    pinv: torch.Tensor            # (l+1, 1) Montgomery -p^{-1}
+    r2: torch.Tensor              # (l+1, 1) R^2 mod p
+    mu: torch.Tensor              # (l+1, 1) Barrett mu
+    t_mont: torch.Tensor          # (l+1, 1) t*R mod p (payload scaling)
+    # --- divide-by-P (drop the special limb) ---
+    t_inv_mont_sp: torch.Tensor   # (1,1) [t^{-1}]_P, mont-of-P
+    sp_half: torch.Tensor         # (1,1) P // 2
+    sp_mod_pi: torch.Tensor       # (l,1) P mod p_i
+    inv_sp_mont: torch.Tensor     # (l,1) [P^{-1}]_{p_i}, mont-of-p_i
+    t_inv_sp_mont: torch.Tensor   # (l,1) [t*P^{-1}]_{p_i}, mont-of-p_i
+
+
+@dataclass(frozen=True)
 class LevelTables:
     """Decode + modswitch tables for one level (active primes[0:l])."""
 
@@ -129,6 +154,34 @@ class CryptoContext:
         if out is None:
             out = self.cache[key] = build()
         return out
+
+    # -- hybrid keyswitch tables (built on first use, per level) -------------
+    def hybrid(self, l: int) -> HybridTables:
+        """Tables for hybrid keyswitching at level l (primes[0:l] + P)."""
+        if not 2 <= l <= self.n_limbs:
+            raise ValueError(f"hybrid keyswitching needs a level in 2..{self.n_limbs}, got {l}")
+        return self.cached(("hybrid", l), lambda: self._build_hybrid(l))
+
+    def _build_hybrid(self, l: int) -> HybridTables:
+        sp = self.params.special_prime
+        chain = self.primes[:l]
+        ext = tuple(chain) + (sp,)
+        mc = [pr.mont_constants(p) for p in ext]
+        t, col = self.t, self.col
+        return HybridTables(
+            l=l,
+            plan=build_plan(self.n, ext, self.device),
+            p=col(ext),
+            pinv=col([c["p_neg_inv"] for c in mc]),
+            r2=col([c["r2_mod_p"] for c in mc]),
+            mu=col([pr.barrett_mu(p) for p in ext]),
+            t_mont=col([t * (1 << 32) % p for p in ext]),
+            t_inv_mont_sp=col([pow(t, -1, sp) * (1 << 32) % sp]),
+            sp_half=col([sp // 2]),
+            sp_mod_pi=col([sp % p for p in chain]),
+            inv_sp_mont=col([pow(sp, -1, p) * (1 << 32) % p for p in chain]),
+            t_inv_sp_mont=col([t * pow(sp, -1, p) % p * (1 << 32) % p for p in chain]),
+        )
 
     # -- convenience slices for a given level ------------------------------
     def lp(self, l: int) -> torch.Tensor:

@@ -113,8 +113,11 @@ def test_port_keygen_decrypts_in_jax():
     got = jax.jit(lambda sk, d: jc.decrypt(jctx, sk, jc.Ciphertext(d, 2, True, 1)))(
         jsk, jnp.asarray(pct.data.numpy()))
     _eq(got, m)
-    with pytest.raises(NotImplementedError):
-        tc.keygen(tctx, torch.Generator().manual_seed(5), rlk_levels=[2])
+    # Relinearization keys are drawn after s, a, e: the same seed keeps its sk and pk.
+    with_rlk = tc.keygen(tctx, torch.Generator().manual_seed(5), rlk_levels=[2])
+    assert with_rlk.rlk[2].shape == (2, 2, 3, tctx.n)
+    assert torch.equal(with_rlk.sk.s_ntt_mont, tks.sk.s_ntt_mont)
+    assert torch.equal(with_rlk.pk.b_ntt, tks.pk.b_ntt)
 
 
 @pytest.mark.parametrize("level", [1, 2, 3])

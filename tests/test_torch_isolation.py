@@ -15,6 +15,12 @@ MODULES = sorted(
     for p in PKG.rglob("*.py"))
 
 
+def test_compare_path_modules_are_covered():
+    for m in ("fhe_icp_tpu_torch.ops.galois", "fhe_icp_tpu_torch.ops.noise",
+              "fhe_icp_tpu_torch.ops.arith", "fhe_icp_tpu_torch.ops.runtime"):
+        assert m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import importlib, sys\n"
@@ -55,6 +61,7 @@ def _entry_points():
     from fhe_icp_tpu_torch.ops.context import CryptoContext
     from fhe_icp_tpu_torch.ops.ntt import build_plan
     from fhe_icp_tpu_torch.ops.params import get_params
+    from fhe_icp_tpu_torch.ops.runtime import FheRuntime
     from fhe_icp_tpu_torch.parallel.mesh import make_mesh
     from fhe_icp_tpu_torch.parallel.ntt_dist import build_dist_plan
     return {
@@ -65,11 +72,18 @@ def _entry_points():
         "make_mesh": lambda: make_mesh(2).devices[0],
         "build_dist_plan": lambda: build_dist_plan(256, (12289,), 16).psi.device,
         "dryrun_multichip": lambda: entry.dryrun_multichip(2),
+        "FheRuntime(rlk_levels)": lambda: FheRuntime("test-512", rlk_levels=[2]).device,
+        "rekey_keys_from_arrays": lambda: next(iter(interop.rekey_keys_from_arrays(
+            {"ksk_2": np.zeros((4, 2, 3, 512), np.uint32)}).values())).device,
+        "galois_keys_from_arrays": lambda: next(iter(interop.galois_keys_from_arrays(
+            {"gal_5_2": np.zeros((4, 2, 3, 512), np.uint32)}).keys.values())).device,
     }
 
 
 @pytest.mark.parametrize("name", ["CryptoContext", "build_plan", "ciphertext_from_array",
-                                  "make_mesh", "build_dist_plan", "dryrun_multichip"])
+                                  "make_mesh", "build_dist_plan", "dryrun_multichip",
+                                  "FheRuntime(rlk_levels)", "rekey_keys_from_arrays",
+                                  "galois_keys_from_arrays"])
 def test_entry_points_default_to_the_card(name):
     """Without CUDA the default device raises, naming CUDA; it never runs on the CPU."""
     call = _entry_points()[name]
