@@ -5,15 +5,19 @@ another: `FheRuntime(params)` needs CUDA and raises without it; tests
 pass `device="cpu"`, where every kernel wrapper runs its plain version.
 
 Encryption randomness must never repeat across messages (c0 - c0' =
-m - m' would leak the difference), so every encrypt entry point defaults
-to a generator seeded from `os.urandom`.  Pass an integer seed only for
-deterministic tests.
+m - m' would leak the difference).  Every `seed=None` draw therefore
+advances one long-lived generator per device, seeded once from
+`os.urandom`: no draw within a process repeats another (the CPU's
+mt19937 keeps only 32 bits of a seed, so seeding a new generator per call
+would repeat after about 77,000 encryptions).  Pass an integer seed only
+for deterministic tests.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+import threading
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -28,6 +32,23 @@ from .params import CryptoParams, get_params
 def fresh_seed() -> int:
     """A 63-bit seed from OS entropy."""
     return int.from_bytes(os.urandom(8), "little") >> 1
+
+
+_fresh_generators: Dict[torch.device, torch.Generator] = {}
+_fresh_lock = threading.Lock()
+
+
+def fresh_generator(device: torch.device) -> torch.Generator:
+    """The device's process-wide generator for fresh randomness, seeded once
+    from `fresh_seed()`; every draw from it advances it."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _fresh_lock:
+        gen = _fresh_generators.get(device)
+        if gen is None:
+            gen = _fresh_generators[device] = torch.Generator(device=device)
+            gen.manual_seed(fresh_seed())
+        return gen
 
 
 class FheRuntime:
@@ -49,9 +70,12 @@ class FheRuntime:
         self._gkeys: Optional[galois.GaloisKeys] = None
 
     def generator(self, seed: Optional[int]) -> torch.Generator:
-        """A generator on the runtime's device; seed=None draws OS entropy."""
+        """A new generator seeded with `seed` on the runtime's device, or for
+        seed=None the device's process-wide fresh generator."""
+        if seed is None:
+            return fresh_generator(self.device)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(fresh_seed() if seed is None else int(seed))
+        gen.manual_seed(int(seed))
         return gen
 
     # -- keys --------------------------------------------------------------

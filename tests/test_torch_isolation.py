@@ -21,6 +21,15 @@ def test_compare_path_modules_are_covered():
         assert m in MODULES
 
 
+def test_user_path_modules_are_covered():
+    for m in ("fhe_icp_tpu_torch.native", "fhe_icp_tpu_torch.store", "fhe_icp_tpu_torch.keymgr",
+              "fhe_icp_tpu_torch.utils.quantize", "fhe_icp_tpu_torch.models.embedder",
+              "fhe_icp_tpu_torch.models.reduction", "fhe_icp_tpu_torch.models.similarity",
+              "fhe_icp_tpu_torch.models.poly", "fhe_icp_tpu_torch.batch",
+              "fhe_icp_tpu_torch.cli"):
+        assert m in MODULES
+
+
 def test_import_leaves_jax_out():
     code = (
         "import importlib, sys\n"
@@ -32,7 +41,7 @@ def test_import_leaves_jax_out():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert len(MODULES) >= 15
+    assert len(MODULES) >= 38
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()
@@ -54,10 +63,11 @@ def test_runtime_defaults_to_the_card():
     assert FheRuntime("test-512", device="cpu").ctx.p.device.type == "cpu"
 
 
-def _entry_points():
+def _entry_points(tmp):
     """Each entry point that builds on a device, called with its default device."""
     import numpy as np
-    from fhe_icp_tpu_torch import entry, interop
+    from fhe_icp_tpu_torch import batch, cli, entry, interop, keymgr, store
+    from fhe_icp_tpu_torch.models import embedder, poly, reduction, similarity
     from fhe_icp_tpu_torch.ops.context import CryptoContext
     from fhe_icp_tpu_torch.ops.ntt import build_plan
     from fhe_icp_tpu_torch.ops.params import get_params
@@ -77,16 +87,60 @@ def _entry_points():
             {"ksk_2": np.zeros((4, 2, 3, 512), np.uint32)}).values())).device,
         "galois_keys_from_arrays": lambda: next(iter(interop.galois_keys_from_arrays(
             {"gal_5_2": np.zeros((4, 2, 3, 512), np.uint32)}).keys.values())).device,
+        "FHEKeyManager": lambda: keymgr.FHEKeyManager(str(tmp / "keys")).device,
+        "DimensionReducer": lambda: reduction.DimensionReducer(8).device,
+        "DimensionReducer.load": lambda: reduction.DimensionReducer.load(
+            _reducer_file(tmp)).device,
+        "BertEmbedder": lambda: embedder.BertEmbedder(tokenizer=object(),
+                                                      model=_tiny_model()).device,
+        "BatchProcessor": lambda: batch.BatchProcessor(
+            storage_dir=str(tmp / "docs"), key_dir=str(tmp / "keys"),
+            embedder=embedder.HashingEmbedder()).device,
+        "FHEDocumentCLI": lambda: cli.FHEDocumentCLI(str(tmp / "docs")).device,
+        "cli.main": lambda: cli.main(["--storage-dir", str(tmp / "docs"), "--key-dir",
+                                      str(tmp / "keys"), "estimate"]) or None,
+        "EncryptedDocument.ciphertext": lambda: store.EncryptedDocument(
+            "d", "0" * 64, 0.0, np.zeros((4, 2, 512), np.uint32), 2, 128, 1000
+        ).ciphertext().data.device,
+        "FHESimilarityModel.compile": lambda: _trained(similarity.FHESimilarityModel(
+            preset="test-512")).compile().runtime.device,
+        "FHEPolynomialSimilarity.compile": lambda: poly.FHEPolynomialSimilarity(
+            64, preset="test-512-poly").compile().runtime.device,
     }
+
+
+def _reducer_file(tmp):
+    import numpy as np
+    from fhe_icp_tpu_torch.models.reduction import DimensionReducer
+    path = tmp / "reducer.npz"
+    DimensionReducer(4, device="cpu").fit(np.eye(6, dtype=np.float32)).save(path)
+    return path
+
+
+def _tiny_model():
+    import types
+    model = torch.nn.Linear(1, 1)
+    model.config = types.SimpleNamespace(hidden_size=1)
+    return model
+
+
+def _trained(model):
+    model.train(n_samples=200)
+    return model
 
 
 @pytest.mark.parametrize("name", ["CryptoContext", "build_plan", "ciphertext_from_array",
                                   "make_mesh", "build_dist_plan", "dryrun_multichip",
                                   "FheRuntime(rlk_levels)", "rekey_keys_from_arrays",
-                                  "galois_keys_from_arrays"])
-def test_entry_points_default_to_the_card(name):
+                                  "galois_keys_from_arrays", "FHEKeyManager", "DimensionReducer",
+                                  "DimensionReducer.load", "BertEmbedder", "BatchProcessor",
+                                  "FHEDocumentCLI", "cli.main", "EncryptedDocument.ciphertext",
+                                  "FHESimilarityModel.compile",
+                                  "FHEPolynomialSimilarity.compile"])
+def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """Without CUDA the default device raises, naming CUDA; it never runs on the CPU."""
-    call = _entry_points()[name]
+    monkeypatch.setenv("FHE_MASTER_PASSWORD", "test-password-123")
+    call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():
         dev = call()
         assert dev is None or dev.type == "cuda"
