@@ -11,6 +11,7 @@ K2 at the same shapes, so that two trees compare on one card in one run.
 Phases (any failure raises and the exit code is not 0):
 
 1. Device and build: needs CUDA, prints the card's name and power limit,
+   `utils/debug.check_environment()` and the card's data-sheet peaks,
    builds the kernels of `fhe_icp_tpu_torch/csrc/` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, bit-exact:
    the NTT (all four entries: forward, inverse, and their cyclic forms)
@@ -81,8 +82,10 @@ Phases (any failure raises and the exit code is not 0):
    each kernel, its plain version and, where one PyTorch call computes
    the same function (the int8 matmul alone through `torch._int_mm`; one
    strided `copy_` for the all-to-all), that call, beside the least time
-   the card could take (bytes at 3.35 TB/s, NVLink at 450 GB/s each way,
-   or operations at the published peak rate).  The NTT's forward and
+   the card could take (bytes over its device memory's rate or NVLink's,
+   or operations at the published peak rate: the card's data-sheet peaks
+   from the port's `utils/profiling.CARD_SPECS`, printed in phase 1,
+   which fails on a card the table lacks).  The NTT's forward and
    inverse are timed at one encrypt batch (16,384 rows x N = 4096, the
    JSON rows), a query's 2 rows and one ring-16384 polynomial (12 x
    16384), its cyclic entries at one four-step shard (192 x 128, the JSON
@@ -91,6 +94,30 @@ Phases (any failure raises and the exit code is not 0):
    timed at 2048 groups (the JSON row) and at one 391-group shard, the
    all-to-all at the ring-16384 exchange (the JSON row) and at 256 MiB,
    each also by its device time per call from torch.profiler.
+8. The rest of the package (`rest_of_package`), after phase 7 and before
+   phase 6's times; launch counts are zeroed before (a)-(e), with the
+   oracles' and timings' launches left out: K2 must have risen in this
+   process, and K1 in each worker of (d).  (a) Phase 3's 65,536 documents
+   encrypted again as per-document ciphertexts (its keys and seeds) into a 4.0 GiB fastdot
+   `DocOperand`; 8 queries through `make_query_operand` and `scores`, every
+   score == docs @ query == phase 3's packed scores (K1), every top-10 the
+   oracle's; the query latency beside K1's packed query, the int8 product
+   (`pack_cuda.int_mm`, `torch._int_mm` a limb) beside its byte bound; then
+   the same operand on 8 dp shards (`make_sharded_fastdot_search`).  (b)
+   Fastdot at ring-16384 (12 limbs, 2N = 32768), 256 documents, exact, and
+   the digit fold on +-2^29 partials equal to exact integers.  (c)
+   `make_pipelined_scores` on a 2-shard pp mesh over phase 3's packed
+   operand, 8 microbatches: every query bit-equal to `packed_scores`;
+   its time beside K1's.  (d) Two worker processes on this card
+   (`python -m fhe_icp_tpu_torch.parallel.multihost`, gloo on 127.0.0.1,
+   their own timeout), each with `partition_groups(3128, 2)`'s half of
+   phase 4's store and keys from seed 0, `search_host_shard` then
+   `global_topk`: both print the oracle's exact top-10 for every query,
+   and neither rebuilds the kernel library.  (e) `ntt_fwd_mxu` at
+   pairwise-4096 on 256 polynomials bit-equal to K2's forward after the
+   bit reversal, its time against K2's.  (f) phase 3's query and K2 at
+   16,384 rows timed by `utils/profiling.measure_ondevice_loop` beside
+   CUDA events around one call.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -107,6 +134,7 @@ import json
 import logging
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -165,14 +193,6 @@ APP_DOCS, APP_VOCAB = 4096, 5000
 APP_QUERIES, APP_PAIRS, APP_TOP_K = 8, 8, 10
 REKEYED_PAIRS = 64
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-# 32-bit integer multiplies (IMAD) on the CUDA cores: 64 per clock per SM,
-# half the float32 FMA rate behind the 67 TFLOP/s float32 peak.
-INT32_MUL_PER_S = 67e12 / 4
-# NVLink between the cards of one host: 900 GB/s, 450 GB/s each way.
-NVLINK_BYTES_PER_S = 450e9
 
 KERNELS = {
     "ntt_fwd": ("fhe_icp_tpu_torch/csrc/ntt.cu", "fhe_icp_tpu/ops/ntt_pallas.py:152"),
@@ -205,18 +225,31 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside (an oracle, a timing loop) leave the kernels'
+    launch counts as they were: only a path's own launches count."""
+    saved = dict(kernels.launches)
+    try:
+        yield
+    finally:
+        kernels.launches.clear()
+        kernels.launches.update(saved)
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median device time of fn() in ms, by CUDA events around each run."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+    with uncounted():
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
     return statistics.median(times)
 
 
@@ -251,6 +284,13 @@ def device_and_build() -> str:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
+    from fhe_icp_tpu_torch.utils import debug
+    print("  check_environment: " + json.dumps(debug.check_environment(verbose=False),
+                                               default=str))
+    spec = peaks()
+    print(f"  data-sheet peaks (utils/profiling): HBM {spec.hbm_gbs:g} GB/s, int8 "
+          f"{spec.int8_tops:g} TOP/s, 32-bit multiplies {spec.int32_mul_tops:g} T/s, NVLink "
+          f"{spec.nvlink_gbs:g} GB/s each way")
     t0 = time.perf_counter()
     log = kernels.build()
     kernels.load()
@@ -686,7 +726,7 @@ def device_view(run, count: int, unit: str, top: int = 8) -> None:
     """
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(count):
             run(i)
@@ -757,7 +797,9 @@ def multi_shard_path(rng) -> dict:
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     overhead = sharding_overhead(search)
     dist_vs_single(dist, ring)
-    return dict(launches=launches, query_ms=search["query_ms"], **overhead)
+    # The store's documents and queries, for phase 8's multi-process search.
+    return dict(launches=launches, query_ms=search["query_ms"], docs=docs, queries=queries,
+                **overhead)
 
 
 def sharded_search(docs: np.ndarray, queries: np.ndarray) -> dict:
@@ -1393,6 +1435,332 @@ def app_times(proc, queries) -> None:
                 len(queries), "search")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the rest of the package (fastdot, the pipeline, multi-host search,
+# the four-step int8 NTT, profiling).  Its modules are imported where they
+# are used: `--k2-times DIR` imports an earlier tree's package, which lacks them.
+# ---------------------------------------------------------------------------
+
+PIPE_MICRO = 8                     # microbatches of the pipelined scoring
+RING_FASTDOT_DOCS = 256
+MXU_BATCH, MXU_N1 = 256, 128       # the four-step NTT's batch and N1 (JAX's config 6)
+WORKERS, WORKER_TIMEOUT_S = 2, 300
+LOOP_K = (4, 20)                   # measure_ondevice_loop's short and long runs
+# K2 in this process (encryption, the query operands); K1 only in the
+# workers' search: this process launches K1 only for its oracles and times.
+REST_PATH_KERNELS = ("ntt_fwd",)
+WORKER_KERNELS = ("pack_score",)
+
+
+def rest_of_package(rng, store: dict, shard_store: dict) -> dict:
+    """Phase 8, counts zeroed before (a)-(e) and read after, the oracles'
+    and timings' launches left out; then (f)'s times.  Its launches are this
+    process's and the workers' together."""
+    phase(f"the rest of the package: fastdot over {len(store['docs'])} per-document "
+          f"ciphertexts and at {RING}, the pipeline, {WORKERS} worker processes, the "
+          f"four-step int8 NTT")
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    t_start = time.perf_counter()
+    packed = fastdot_store(store)
+    torch.cuda.empty_cache()
+    fastdot_ring(rng)
+    pipelined(store, packed)
+    torch.cuda.empty_cache()
+    worker_launches = multihost_workers(shard_store)
+    four_step_ntt(rng, store["rt"].ctx)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in REST_PATH_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} not launched in phase 8")
+    print(f"  launches in phase 8: this process {launches}, its oracles and timings left "
+          f"out; the workers {worker_launches}; {time.perf_counter() - t_start:.2f} s")
+    loop_times(rng, store, packed)
+    print(f"  phase 8, its times included: {time.perf_counter() - t_start:.2f} s")
+    for name, n in worker_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    return dict(launches=launches)
+
+
+def fastdot_store(store: dict):
+    """(a) Phase 3's documents as per-document ciphertexts (its keys, seeds and
+    queries) scored by fastdot: every score == docs @ query and == phase 3's
+    packed scores (K1), every top-10 the oracle's; then the same operand on 8
+    dp shards.  Returns phase 3's packed doc operand."""
+    from fhe_icp_tpu_torch.ops import fastdot
+    from fhe_icp_tpu_torch.parallel.mesh import DOC_OPERAND_SPEC
+    from fhe_icp_tpu_torch.parallel.search import make_sharded_fastdot_search
+    rt, ct, docs, queries = store["rt"], store["ct"], store["docs"], store["queries"]
+    ctx, sk = rt.ctx, rt.keys.sk
+    n, level = len(docs), ctx.n_limbs
+    t0 = time.perf_counter()
+    digits = torch.empty((level, fastdot.N_DIGITS, n, 2 * ctx.n), dtype=torch.int8,
+                         device=DEVICE)
+    for i in range(0, n, ENC_BATCH):
+        cts = rt.encrypt_vector(docs[i: i + ENC_BATCH], seed=1 + i)
+        digits[:, :, i: i + ENC_BATCH] = fastdot.make_doc_operand(ctx, cts.data, level).digits
+    dop = fastdot.DocOperand(digits, level)
+    packed = pack.make_packed_doc_operand(ctx, ct.data, ct.level)
+    torch.cuda.synchronize()
+    print(f"  DocOperand {tuple(digits.shape)} int8, {digits.numel() / 2 ** 30:.2f} GiB, "
+          f"encrypted and built in {time.perf_counter() - t0:.3f} s")
+    want_all = docs.astype(np.int64) @ queries.astype(np.int64).T
+    lat, lat_k1 = [], []
+    for qi, q in enumerate(queries):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_op = fastdot.make_query_operand(ctx, sk, torch.from_numpy(q), DIM, level)
+        scores = fastdot.scores(ctx, dop, q_op)
+        top = torch.topk(scores, TOP_K)
+        top_vals = top.values.cpu()
+        lat.append(time.perf_counter() - t0)
+        with uncounted():
+            t0 = time.perf_counter()
+            pq = pack.make_packed_query_operand(ctx, sk, torch.from_numpy(q), DIM, ct.level)
+            k1 = pack.packed_scores(ctx, packed, pq, ct.pt_corr).reshape(-1)
+            torch.topk(k1, TOP_K).values.cpu()
+            lat_k1.append(time.perf_counter() - t0)
+        got, want = scores.cpu().numpy().astype(np.int64), want_all[:, qi]
+        check(got.shape == want.shape and (got == want).all(),
+              f"fastdot query {qi}: {(got != want).sum()} scores differ from docs @ query")
+        check((k1.cpu().numpy() == got).all(), f"fastdot query {qi}: differs from K1's scores")
+        check(sorted(top_vals.tolist()) == sorted(np.sort(want)[-TOP_K:].tolist())
+              and (want[top.indices.cpu().numpy()] == top_vals.numpy()).all(),
+              f"fastdot query {qi}: top-{TOP_K} differs from the oracle's")
+    print(f"  (a) {len(queries)} fastdot queries exact (scores == docs @ query == K1's packed "
+          f"scores, top-{TOP_K}); query latency (operand + scores + top-{TOP_K}, host clock, "
+          f"median of {len(lat) - 1} after the first) {statistics.median(lat[1:]) * 1e3:.3f} ms, "
+          f"first {lat[0] * 1e3:.3f} ms; K1's packed query on the same documents "
+          f"{statistics.median(lat_k1[1:]) * 1e3:.3f} ms")
+    a2 = digits.reshape(level, fastdot.N_DIGITS * n, -1)
+    v2 = q_op.digits.transpose(1, 2)
+    vpad = torch.zeros((level, 2 * ctx.n, 8), dtype=torch.int8, device=DEVICE)
+    vpad[:, :, :fastdot.N_DIGITS] = v2
+    mm = cuda_ms(lambda: pack_cuda.int_mm(a2, v2))
+    lib = cuda_ms(lambda: [torch._int_mm(a2[i], vpad[i]) for i in range(level)])
+    byts = a2.numel() + v2.numel() + level * a2.shape[1] * fastdot.N_DIGITS * 4
+    bound_ms, _, why = bound(byts, 2 * a2.numel() * fastdot.N_DIGITS, peaks().int8_tops * 1e12)
+    fd = cuda_ms(lambda: fastdot.scores(ctx, dop, q_op))
+    k1 = cuda_ms(lambda: pack.packed_scores(ctx, packed, pq, ct.pt_corr))
+    print(f"  (a) int8 product ({level} x ({a2.shape[1]}, {a2.shape[2]}) x ({a2.shape[2]}, 4 "
+          f"padded to 8)), CUDA events: int_mm {mm:.4f} ms, {level} x torch._int_mm alone "
+          f"{lib:.4f} ms, bound {bound_ms:.4f} ms ({why}; {byts / 1e9:.3f} GB); "
+          f"fastdot.scores {fd:.4f} ms; K1's packed_scores on the same documents {k1:.4f} ms")
+    device_view(lambda i: fastdot.scores(ctx, dop, q_op), 3, "fastdot.scores", top=5)
+
+    mesh = make_mesh(N_SHARDS, (N_SHARDS, 1), DEVICE)
+    shards = shard(mesh, digits, DOC_OPERAND_SPEC)
+    del dop, digits, a2
+    step = make_sharded_fastdot_search(ctx, mesh, top_k=TOP_K)
+    lat = []
+    for qi, q in enumerate(queries):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q_op = fastdot.make_query_operand(ctx, sk, torch.from_numpy(q), DIM, level)
+        scores, vals, idx = step(shards, q_op.digits)
+        vals, idx = vals.cpu().numpy().astype(np.int64), idx.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        got, want = scores.cpu().numpy().astype(np.int64), want_all[:, qi]
+        check((got == want).all(), f"sharded fastdot query {qi}: {(got != want).sum()} scores "
+              "differ from docs @ query")
+        check(sorted(vals.tolist()) == sorted(np.sort(want)[-TOP_K:].tolist())
+              and (want[idx] == vals).all(),
+              f"sharded fastdot query {qi}: top-{TOP_K} differs from the oracle's")
+    print(f"  (a) the same documents on {N_SHARDS} dp shards (make_sharded_fastdot_search): "
+          f"{len(queries)} queries exact; latency {statistics.median(lat[1:]) * 1e3:.3f} ms "
+          f"(host clock, median of {len(lat) - 1} after the first)")
+    return packed
+
+
+def fastdot_ring(rng) -> None:
+    """(b) Fastdot at ring-16384 (12 limbs, 2N = 32768, three digit pairs a
+    fold group), exact; the fold on adversarial partials equal to integers."""
+    from fhe_icp_tpu_torch.ops import fastdot
+    rt = runtime(RING, (12,))
+    if rt.keys is None:
+        rt.generate_keys(seed=0)
+    ctx, l = rt.ctx, rt.ctx.n_limbs
+    docs = quantized_unit(rng, (RING_FASTDOT_DOCS, DIM))
+    queries = quantized_unit(rng, (2, DIM))
+    dop = fastdot.make_doc_operand(ctx, rt.encrypt_vector(docs, seed=12).data, l)
+    lat = []
+    for qi, q in enumerate(queries):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = fastdot.scores(ctx, dop, fastdot.make_query_operand(
+            ctx, rt.keys.sk, torch.from_numpy(q), DIM, l)).cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        want = docs.astype(np.int64) @ q.astype(np.int64)
+        check((scores.astype(np.int64) == want).all(),
+              f"{RING} fastdot query {qi}: {(scores != want).sum()} scores differ")
+    k_len = 2 * ctx.n
+    part = rng.choice([-1, 1], size=(l, 4, 64, 4)) * (128 * 128 * k_len)
+    part[:, :, 0], part[:, :, 1] = 128 * 128 * k_len, -128 * 128 * k_len
+    got = fastdot.fold_digit_products(ctx, torch.from_numpy(part.astype(np.int32)).to(DEVICE),
+                                      l, k_len).cpu().numpy()
+    want = np.array([[sum(int(part[li, i, m, j]) << (8 * (i + j)) for i in range(4)
+                          for j in range(4)) % p for m in range(part.shape[2])]
+                     for li, p in enumerate(ctx.primes[:l])])
+    check((got.astype(np.int64) == want).all(), "fold of adversarial partials on the card")
+    print(f"  (b) {RING} (L={l}, 2N={k_len}): {RING_FASTDOT_DOCS} documents x {len(queries)} "
+          f"queries exact ({max(lat) * 1e3:.3f} ms a query at most, host clock); the fold of "
+          f"+-2^29 partials (3 pairs a group) on the card == exact integers")
+
+
+def pipelined(store: dict, packed) -> None:
+    """(c) make_pipelined_scores on a 2-shard pp mesh over phase 3's packed
+    operand, bit-equal to packed_scores (K1) for every query; times beside K1."""
+    from fhe_icp_tpu_torch.parallel.pipeline import make_pipelined_scores, make_pp_mesh
+    rt, ct, docs, queries = store["rt"], store["ct"], store["docs"], store["queries"]
+    ctx, sk = rt.ctx, rt.keys.sk
+    slots = pack.slots_per_ct(ctx.n, DIM)
+    mesh = make_pp_mesh(2, DEVICE)
+    fn = make_pipelined_scores(ctx, mesh, ct.level, slots, PIPE_MICRO)
+    for qi, q in enumerate(queries):
+        pq = pack.make_packed_query_operand(ctx, sk, torch.from_numpy(q), DIM, ct.level)
+        got = fn(packed.digits, pq.digits, ct.pt_corr)
+        with uncounted():
+            want = pack.packed_scores(ctx, packed, pq, ct.pt_corr)
+        check(torch.equal(got.cpu(), want.cpu()), f"pipeline query {qi}: differs from K1's")
+        check((got.reshape(-1).cpu().numpy().astype(np.int64)
+               == docs.astype(np.int64) @ q.astype(np.int64)).all(),
+              f"pipeline query {qi}: differs from docs @ query")
+    ms = cuda_ms(lambda: fn(packed.digits, pq.digits, ct.pt_corr))
+    k1 = cuda_ms(lambda: pack.packed_scores(ctx, packed, pq, ct.pt_corr))
+    print(f"  (c) pipeline (2 stages on {', '.join(map(str, mesh.devices))}, {PIPE_MICRO} "
+          f"microbatches of {4 * packed.groups // PIPE_MICRO} rows): {len(queries)} queries "
+          f"bit-equal to packed_scores and docs @ query; {ms:.4f} ms against K1's "
+          f"packed_scores {k1:.4f} ms (CUDA events)")
+    device_view(lambda i: fn(packed.digits, pq.digits, ct.pt_corr), 3, "pipelined scores", top=5)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_workers(shard_store: dict) -> dict:
+    """(d) WORKERS processes on this card, joined over gloo on 127.0.0.1: each
+    encrypts its half of phase 4's store (keys from seed 0), searches it with
+    K1 and merges; both must print the oracle's exact global top-10.  The
+    workers load the kernel library phase 1 built and must not rebuild it.
+    Returns the workers' launch counts, summed."""
+    from fhe_icp_tpu_torch.parallel import multihost
+    docs, queries = shard_store["docs"], shard_store["queries"]
+    slots = pack.slots_per_ct(get_params(PRESET).n, DIM)
+    groups = -(-len(docs) // slots)
+    groups += -groups % PAD_GROUPS
+    lib_mtime = kernels.LIB_PATH.stat().st_mtime_ns
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "store.npz")
+        np.savez(path, docs=docs, queries=queries)
+        coord = f"127.0.0.1:{free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "fhe_icp_tpu_torch.parallel.multihost", coord, str(WORKERS),
+             str(pid), "--store", path, "--preset", PRESET, "--pad-groups", str(PAD_GROUPS),
+             "--top-k", str(TOP_K), "--device", DEVICE],
+            cwd=TREE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(WORKERS)]
+        deadline = time.monotonic() + WORKER_TIMEOUT_S
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    wall = time.perf_counter() - t0
+    recs = {}
+    for rc, out, err in outs:
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(rc == 0 and bool(line), f"worker failed (rc={rc}): {out[-1000:]} {err[-3000:]}")
+        rec = json.loads(line[-1][len("RESULT "):])
+        recs[rec["pid"]] = rec
+    check(sorted(recs) == list(range(WORKERS)), f"workers {sorted(recs)}")
+    shards = multihost.partition_groups(groups, WORKERS)
+    for qi, q in enumerate(queries):
+        truth = docs.astype(np.int64) @ q.astype(np.int64)
+        vals, idx = multihost.merge_topk(
+            [multihost.local_topk(truth[s.start * slots: min(s.stop * slots, len(docs))], TOP_K,
+                                  index_offset=s.start * slots) for s in shards], TOP_K)
+        check(np.array_equal(vals, np.sort(truth)[::-1][:TOP_K]), "the oracle's own merge")
+        for pid, rec in recs.items():
+            check(rec["ok"] and rec["queries"][qi] == {"vals": vals.tolist(), "idx": idx.tolist()},
+                  f"worker {pid}, query {qi}: {rec['queries'][qi]} is not the oracle's top-"
+                  f"{TOP_K}")
+    for pid, rec in recs.items():
+        for name in WORKER_KERNELS:
+            check(rec["launches"].get(name, 0) > 0, f"worker {pid} did not launch {name}")
+        check(rec["shard"] == [shards[pid].start, shards[pid].stop], f"worker {pid} shard")
+    check(kernels.LIB_PATH.stat().st_mtime_ns == lib_mtime, "a worker rebuilt the kernels")
+    print(f"  (d) {WORKERS} worker processes (gloo on 127.0.0.1), groups "
+          + ", ".join(f"{r['shard']}" for r in recs.values())
+          + f" of {groups}: each printed the oracle's exact global top-{TOP_K} for "
+          f"{len(queries)} queries; wall {wall:.2f} s; build (keys, encrypt, pack, operand) "
+          + ", ".join(f"{r['build_s']:.3f}" for r in recs.values()) + " s; query (host clock, "
+          "median) " + ", ".join(f"{statistics.median(r['query_ms'][1:]):.3f}"
+                                 for r in recs.values())
+          + " ms; K1 launches " + ", ".join(str(r["launches"].get("pack_score"))
+                                            for r in recs.values())
+          + "; the kernel library was not rebuilt")
+    total: dict = {}
+    for rec in recs.values():
+        for name, n in rec["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def four_step_ntt(rng, ctx) -> None:
+    """(e) ntt_fwd_mxu at pairwise-4096 on MXU_BATCH polynomials, bit-equal to
+    K2's forward after the bit-reversal; its time against K2's."""
+    from fhe_icp_tpu_torch.ops.cipher import bitrev
+    from fhe_icp_tpu_torch.ops.ntt_mxu import ntt_fwd_mxu
+    x = random_residues(rng, ctx.plan, (MXU_BATCH, ctx.n_limbs, ctx.n))
+    brv = torch.from_numpy(bitrev(ctx.n)).to(DEVICE)
+    got = ntt_fwd_mxu(ctx, x, n1=MXU_N1)
+    with uncounted():
+        e = max_abs_err(got, ntt_cuda.ntt_fwd(ctx.plan, x).to(torch.int64)[..., brv])
+    check(e == 0, f"ntt_fwd_mxu differs from K2's forward: max abs err {e}")
+    mxu = cuda_ms(lambda: ntt_fwd_mxu(ctx, x, n1=MXU_N1))
+    k2 = cuda_ms(lambda: ntt_cuda.ntt_fwd(ctx.plan, x))
+    print(f"  (e) ntt_fwd_mxu ({PRESET}, {MXU_BATCH} x {ctx.n_limbs} x {ctx.n}, N1={MXU_N1}, "
+          f"N2={ctx.n // MXU_N1}) bit-equal to K2's forward after the bit reversal; "
+          f"{mxu:.4f} ms against K2 {k2:.4f} ms (CUDA events), {mxu / k2:.1f}x")
+
+
+def loop_times(rng, store: dict, packed) -> None:
+    """(f) utils/profiling.measure_ondevice_loop on phase 3's query and on K2 at
+    16,384 rows, beside CUDA events around one call."""
+    from fhe_icp_tpu_torch.utils.profiling import measure_ondevice_loop
+    rt, ct = store["rt"], store["ct"]
+    ctx, sk = rt.ctx, rt.keys.sk
+    q = torch.from_numpy(store["queries"][0])
+
+    def query(tok):
+        pq = pack.make_packed_query_operand(ctx, sk, q, DIM, ct.level)
+        return tok + pack.packed_scores(ctx, packed, pq, ct.pt_corr)[0, 0] * 0
+
+    x = random_residues(rng, ctx.plan, (ENC_BATCH, ctx.n_limbs, ctx.n))
+
+    def k2(tok):
+        ntt_cuda.ntt_fwd(ctx.plan, x)
+        return tok
+
+    tok = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    for label, body in (("a packed query (operand + K1 + decode)", query),
+                        (f"K2 forward at {ENC_BATCH * ctx.n_limbs} rows", k2)):
+        loop = measure_ondevice_loop(body, *LOOP_K, reps=5, device=DEVICE)
+        one = cuda_ms(lambda: body(tok))
+        print(f"  (f) {label}: measure_ondevice_loop {loop['ms']:.4f} ms a step (slope of "
+              f"{LOOP_K[0]} and {LOOP_K[1]} back-to-back steps, median of 5, spread "
+              f"{loop['spread']:.3f}); CUDA events around one call {one:.4f} ms")
+
+
 def cross_card(rng) -> None:
     """The shards spread over every visible card: K3 through peer pointers.
 
@@ -1427,9 +1795,21 @@ def cross_card(rng) -> None:
     time_exchange(random_flats(sp.devices, 2048, 4096), "at 256 MiB")
 
 
+@functools.lru_cache(maxsize=None)
+def peaks():
+    """The card's published peaks (NVIDIA data sheet, at its full power limit)
+    from the port's table, `utils/profiling.CARD_SPECS`; fails on a card the
+    table lacks.  Imported here: `--k2-times` loads trees without the module."""
+    from fhe_icp_tpu_torch.utils import profiling
+    spec = profiling.card_spec()
+    check(spec is not None, f"utils/profiling.CARD_SPECS has no peaks for "
+          f"{torch.cuda.get_device_name(0)}")
+    return spec
+
+
 def bound(byts: float, ops: float, ops_per_s: float) -> tuple:
     """(ms, kind, text): the least time the card could take, and what sets it."""
-    t_b, t_o = byts / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    t_b, t_o = byts / (peaks().hbm_gbs * 1e9) * 1e3, ops / ops_per_s * 1e3
     kind = "bytes" if t_b >= t_o else "operations"
     return max(t_b, t_o), kind, f"set by {kind}: bytes {t_b:.4f} ms, operations {t_o:.4f} ms"
 
@@ -1499,7 +1879,7 @@ def k2_timings(rng) -> list:
         twisted = not name.startswith("ntt_cyclic")
         bound_ms, kind, why = bound(2 * rows * n * 4 + l * (4 if twisted else 2) * n * 4,
                                     3 * rows * (n // 2 * plan.log_n + (n if twisted else 0)),
-                                    INT32_MUL_PER_S)
+                                    peaks().int32_mul_tops * 1e12)
         plain = cuda_ms(lambda: t["ref"](plan, x), reps=3, warmup=1)
         s = ntt_cuda.launch_shape(rows, l, n)
         print(f"  {name} {rows} rows x N={n} ({t['what']}; {s.regime}, R={s.rows_per_block}, "
@@ -1542,7 +1922,7 @@ def pack_score_timing(g: int) -> dict:
     lib = cuda_ms(lambda: [torch._int_mm(a[i], v[i]) for i in range(2)], reps=20)
     byts = a.numel() + v.numel() + 2 * 4 * 4 * slots * 4 + 2 * 8 * 4 + 2 * g * slots * 4
     ops = 2 * a.shape[0] * a.shape[1] * k * v.shape[2]
-    bound_ms, kind, why = bound(byts, ops, INT8_OPS_PER_S)
+    bound_ms, kind, why = bound(byts, ops, peaks().int8_tops * 1e12)
     splits = pack_cuda.k_splits(2, g, k, 4 * slots)
     print(f"  pack_score G={g} (L=2, 2N={k}, 4S={4 * slots}, {splits} K slices): {ms:.4f} ms "
           f"(CUDA events around the wrapper; device time per call {fmt_us(dev)}, of which the "
@@ -1584,8 +1964,9 @@ def exchange_bound(flats) -> tuple:
             if y.device != x.device:
                 sent[x.device] = sent.get(x.device, 0) + chunk
                 recv[y.device] = recv.get(y.device, 0) + chunk
-    t_hbm = max(hbm.values()) / HBM_BYTES_PER_S * 1e3
-    t_link = max([max(sent.get(c, 0), recv.get(c, 0)) for c in hbm]) / NVLINK_BYTES_PER_S * 1e3
+    t_hbm = max(hbm.values()) / (peaks().hbm_gbs * 1e9) * 1e3
+    t_link = (max([max(sent.get(c, 0), recv.get(c, 0)) for c in hbm])
+              / (peaks().nvlink_gbs * 1e9) * 1e3)
     return (max(t_hbm, t_link), "bytes",
             f"set by bytes: device memory {t_hbm:.5f} ms, NVLink {t_link:.5f} ms")
 
@@ -1650,9 +2031,12 @@ def main() -> None:
     # the multi-shard path builds its own.
     torch.cuda.empty_cache()
     shard_run = multi_shard_path(rng)
-    compare_run = compare_path(rng, run.pop("store"))
+    store = run.pop("store")
+    compare_run = compare_path(rng, store)
     torch.cuda.empty_cache()
     app_run = user_path(rng)
+    torch.cuda.empty_cache()
+    rest_run = rest_of_package(rng, store, shard_run)
     torch.cuda.empty_cache()
     cross_card(rng)
     launches = {**run["launches"],
@@ -1662,6 +2046,8 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + compare_run["launches"].get(k, 0)
     for k in APP_PATH_KERNELS:
         launches[k] = launches.get(k, 0) + app_run["launches"].get(k, 0)
+    for k in REST_PATH_KERNELS + WORKER_KERNELS + ("ntt_inv",):
+        launches[k] = launches.get(k, 0) + rest_run["launches"].get(k, 0)
     rows = timings(rng, errs, launches, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

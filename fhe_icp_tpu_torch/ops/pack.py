@@ -28,7 +28,7 @@ from . import primes as pr
 from .cipher import SecretKey, _pow_table, bitrev, centered_residues, rns_decode_centered
 from .context import CryptoContext
 from .encoding import encode_rev
-from .fastdot import N_DIGITS, _shift_consts, balanced_digits, center_residues
+from .fastdot import N_DIGITS, _shift_tensor, balanced_digits, center_residues
 from .modmath import add_mod, i64, mont_mul, u32
 from .ntt import ntt_fwd
 
@@ -209,7 +209,7 @@ def fold_separable(ctx: CryptoContext, part: torch.Tensor, l: int,
     """
     p = ctx.p[:l].reshape(l, 1, 1)
     pinv = ctx.p_neg_inv[:l].reshape(l, 1, 1)
-    consts = torch.from_numpy(_shift_consts(ctx, l).astype(np.int64)).to(part.device)
+    consts = _shift_tensor(ctx, l).to(part.device)
     inner = None                                                  # (L, G*4, S)
     for j in range(N_DIGITS):
         # Signed partials: the remainder is the canonical residue.

@@ -13,7 +13,8 @@ residues.  Where the row tiles are too few to fill the card it splits K
 
 `packed_score_residues` launches the kernel for CUDA tensors and runs the
 plain version `packed_score_residues_ref` (an integer matmul followed by
-`pack.fold_separable`) for CPU tensors.
+`pack.fold_separable`) for CPU tensors.  `int_mm` is the exact int8
+product alone, for the paths that have no kernel of their own.
 """
 
 from __future__ import annotations
@@ -119,6 +120,42 @@ def int_matmul_ref(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return torch.bmm(a.to(torch.int32), v.to(torch.int32))
     return torch.bmm(a.to(torch.float64), v.to(torch.float64)).to(torch.int32)
+
+
+def int_mm(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Exact (L, M, K) x (L, K, C) int8 product as int32, one product a limb.
+
+    The int8 products the JAX package leaves to XLA outside any Pallas
+    kernel: fastdot's scores, the pipeline's first stage, the four-step
+    NTT's DFT products.  On the card each limb is one `torch._int_mm`
+    (cuBLASLt's int8 GEMM), which takes M > 16 and K, C multiples of 8, so
+    the operands are padded with zero rows and columns (they add nothing to
+    any sum) and the result is cut back.  On the CPU `int_matmul_ref`.
+    """
+    if a.device.type == "cpu":
+        return int_matmul_ref(a, v)
+    if a.device.type != "cuda" or v.device != a.device:
+        raise ValueError(f"int_mm needs CUDA operands on one card, got {a.device}, {v.device}")
+    if a.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"int_mm takes int8 operands, got {a.dtype}, {v.dtype}")
+    l, m, k = a.shape
+    c = v.shape[2]
+    if v.shape[:2] != (l, k):
+        raise ValueError(f"shapes {tuple(a.shape)} x {tuple(v.shape)} do not chain")
+    mp, kp, cp = (m if m > 16 else 24), -(-k // 8) * 8, -(-c // 8) * 8
+    if (mp, kp) != (m, k):
+        a = _padded(a, (l, mp, kp))
+    if (kp, cp) != (k, c):
+        v = _padded(v, (l, kp, cp))
+    out = torch.stack([torch._int_mm(a[i].contiguous(), v[i].contiguous()) for i in range(l)])
+    return out[:, :m, :c]
+
+
+def _padded(x: torch.Tensor, shape) -> torch.Tensor:
+    """x in the leading corner of a zero tensor of `shape`."""
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out[tuple(slice(0, s) for s in x.shape)] = x
+    return out
 
 
 def packed_score_residues_ref(ctx: CryptoContext, a: torch.Tensor, v: torch.Tensor,

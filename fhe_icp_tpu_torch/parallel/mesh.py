@@ -42,6 +42,8 @@ Spec = Tuple[Optional[str], ...]
 BATCH_SPEC: Spec = (DP_AXIS, None, TP_AXIS, None)
 # PackedDocOperand digits (L, G*4, 2N): group-major rows over dp.
 PACKED_OPERAND_SPEC: Spec = (None, DP_AXIS, None)
+# fastdot DocOperand digits (L, 4, B, 2N): documents over dp.
+DOC_OPERAND_SPEC: Spec = (None, None, DP_AXIS, None)
 # The same value on every shard.
 REPLICATED: Spec = ()
 

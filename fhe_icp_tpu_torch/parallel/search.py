@@ -7,12 +7,19 @@ logical shards (`mesh.py`) driven from one process:
   rows over `dp`: each shard scores its groups with the scoring kernel K1
   (`ops/pack.packed_scores`), ranks them with `topk_hierarchical`, and
   only k values and k global indices per shard meet in the final merge.
+* `make_sharded_fastdot_search` — per-document scoring (`ops/fastdot.py`)
+  with the documents over `dp`: each shard scores its documents with one
+  int8 product a limb against the replicated query operand, and the top-k
+  runs on the gathered (B,) scores.
 * `make_sharded_search` — the NTT-domain matvec sharded batch-over-dp and
   limbs-over-tp; the `tp` shards of each `dp` row are gathered along the
   limb axis for the single-coefficient decode, which needs every limb.
 
 Shards on another card than the context's get a context of their own, so
-every table a shard reads lies on its card.
+every table a shard reads lies on its card.  The JAX package's placements
+`doc_operand_sharding` and `packed_operand_sharding` give the specs
+`mesh.DOC_OPERAND_SPEC` and `mesh.PACKED_OPERAND_SPEC`, which `mesh.shard`
+cuts by.
 """
 
 from __future__ import annotations
@@ -21,18 +28,19 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops import dot, pack
+from ..ops import dot, fastdot, pack
 from ..ops.arith import plain_to_eval
 from ..ops.cipher import Ciphertext, SecretKey
 from ..ops.context import CryptoContext
 from ..ops.encoding import encode_rev
 from ..ops.modmath import mont_mul
-from .mesh import DP_AXIS, TP_AXIS, Mesh
+from .mesh import DOC_OPERAND_SPEC, DP_AXIS, PACKED_OPERAND_SPEC, TP_AXIS, Mesh, Spec
 
 
 def _contexts(ctx: CryptoContext, mesh: Mesh) -> Dict[torch.device, CryptoContext]:
-    """One context per device of the mesh; `ctx` itself on its own device."""
-    return {dev: ctx if dev == ctx.device else CryptoContext(ctx.params, dev)
+    """One context per device of the mesh; `ctx` itself on its own device (its
+    tables' device: `ctx.device` may name the card without its index)."""
+    return {dev: ctx if dev == ctx.p.device else CryptoContext(ctx.params, dev)
             for dev in dict.fromkeys(mesh.devices)}
 
 
@@ -61,6 +69,47 @@ def topk_hierarchical(flat: torch.Tensor, k: int,
 
 
 SearchStep = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def doc_operand_sharding(mesh: Mesh) -> Spec:
+    """DocOperand digits (L, 4, B, 2N): the documents over dp."""
+    return DOC_OPERAND_SPEC
+
+
+def packed_operand_sharding(mesh: Mesh) -> Spec:
+    """PackedDocOperand digits (L, G*4, 2N): group-major rows over dp."""
+    return PACKED_OPERAND_SPEC
+
+
+def make_sharded_fastdot_search(ctx: CryptoContext, mesh: Mesh, top_k: int = 5,
+                                pt_corr: int = 1) -> SearchStep:
+    """Per-document scoring with the documents sharded over dp.
+
+    Returns step(doc_shards, query_digits) -> (scores (B,) int32,
+    topk_vals (k,), topk_idx (k,)).  doc_shards are the per-shard DocOperand
+    digits, `shard(mesh, digits, DOC_OPERAND_SPEC)`; query_digits is the
+    (L, 4, 2N) QueryOperand digits, copied to every card.  Each shard scores
+    its documents on its own card; the top-k runs on the gathered score
+    vector, as in the JAX package.  Results lie on the mesh's first device.
+    """
+    n_dp = mesh.shape[DP_AXIS]
+    level = ctx.n_limbs
+    ctxs = _contexts(ctx, mesh)
+    out_dev = mesh.devices[0]
+
+    def step(doc_shards: Sequence[torch.Tensor], query_digits: torch.Tensor):
+        queries = {dev: query_digits.to(dev) for dev in ctxs}
+        parts = []
+        for i in range(n_dp):
+            digits = doc_shards[mesh.index({DP_AXIS: i})]
+            q = fastdot.QueryOperand(queries[digits.device], level, 0)
+            parts.append(fastdot.scores(ctxs[digits.device], fastdot.DocOperand(digits, level),
+                                        q, pt_corr).to(out_dev))
+        scores = torch.cat(parts)
+        vals, idx = torch.topk(scores, min(top_k, scores.shape[0]))
+        return scores, vals, idx
+
+    return step
 
 
 def make_sharded_packed_search(ctx: CryptoContext, mesh: Mesh, d: int, top_k: int = 5,

@@ -30,6 +30,39 @@ def test_user_path_modules_are_covered():
         assert m in MODULES
 
 
+REST_OF_PACKAGE = {
+    "ops.fastdot": ("DocOperand", "QueryOperand", "make_doc_operand", "make_query_operand",
+                    "fold_digit_products", "scores", "center_residues", "balanced_digits"),
+    "ops.ntt_mxu": ("ntt_fwd_mxu", "_tables", "_FOLD_GROUPS", "_fold_buckets"),
+    "parallel.search": ("make_sharded_fastdot_search", "doc_operand_sharding",
+                        "packed_operand_sharding"),
+    "parallel.pipeline": ("PP_AXIS", "N_STAGES", "make_pp_mesh", "make_pipelined_scores"),
+    "parallel.multihost": ("initialize", "HostShard", "partition_groups", "shard_slice",
+                           "local_topk", "merge_topk", "global_topk", "search_host_shard"),
+    "utils.profiling": ("trace", "measure", "measure_chained", "measure_ondevice_loop",
+                        "roofline", "keyswitch_footprint", "HBM_SPEC_GBS", "hbm_spec_gbs",
+                        "attainable_read_bw", "Metrics", "METRICS"),
+    "utils.debug": ("KNOWN_ISSUES", "RELEVANT_ENV", "check_environment", "memory_monitor"),
+    "analysis": ("alternatives", "linear_math", "quantization", "reduction"),
+    "analysis.alternatives": ("FHEFriendlySimilarity", "benchmark"),
+    "analysis.linear_math": ("analyze_linear_relationship", "probe_identities"),
+    "analysis.quantization": ("create_similarity_dataset", "QuantizationTester", "main"),
+    "analysis.reduction": ("make_corpus", "run_sweep"),
+    "models.bert_parity": ("SENTENCES", "SENTENCES_SHA256", "_cos_matrix",
+                           "_weights_fingerprint", "_torch_mean_pooled", "evaluate",
+                           "run_parity", "main"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(REST_OF_PACKAGE))
+def test_rest_of_package_modules_are_covered(module):
+    """The last JAX modules have their counterparts, with the JAX names."""
+    import importlib
+    assert f"fhe_icp_tpu_torch.{module}" in MODULES
+    ported = importlib.import_module(f"fhe_icp_tpu_torch.{module}")
+    assert [n for n in REST_OF_PACKAGE[module] if not hasattr(ported, n)] == []
+
+
 def test_import_leaves_jax_out():
     code = (
         "import importlib, sys\n"
@@ -41,7 +74,7 @@ def test_import_leaves_jax_out():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert len(MODULES) >= 38
+    assert len(MODULES) >= 50
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()
@@ -51,6 +84,8 @@ def test_no_reference_in_sources(path):
     text = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
     assert not re.search(r"fhe_icp_tpu(?!_torch)", text)
+    # Flax, and transformers' Flax converter, import JAX when called.
+    assert not re.search(r"flax", text, re.I)
 
 
 def test_runtime_defaults_to_the_card():
@@ -67,13 +102,17 @@ def _entry_points(tmp):
     """Each entry point that builds on a device, called with its default device."""
     import numpy as np
     from fhe_icp_tpu_torch import batch, cli, entry, interop, keymgr, store
-    from fhe_icp_tpu_torch.models import embedder, poly, reduction, similarity
+    from fhe_icp_tpu_torch.analysis import quantization
+    from fhe_icp_tpu_torch.analysis import reduction as analysis_reduction
+    from fhe_icp_tpu_torch.models import bert_parity, embedder, poly, reduction, similarity
     from fhe_icp_tpu_torch.ops.context import CryptoContext
     from fhe_icp_tpu_torch.ops.ntt import build_plan
     from fhe_icp_tpu_torch.ops.params import get_params
     from fhe_icp_tpu_torch.ops.runtime import FheRuntime
+    from fhe_icp_tpu_torch.parallel import multihost, pipeline
     from fhe_icp_tpu_torch.parallel.mesh import make_mesh
     from fhe_icp_tpu_torch.parallel.ntt_dist import build_dist_plan
+    from fhe_icp_tpu_torch.utils import profiling
     return {
         "CryptoContext": lambda: CryptoContext(get_params("test-512")).device,
         "build_plan": lambda: build_plan(16, (12289,)).device,
@@ -106,7 +145,54 @@ def _entry_points(tmp):
             preset="test-512")).compile().runtime.device,
         "FHEPolynomialSimilarity.compile": lambda: poly.FHEPolynomialSimilarity(
             64, preset="test-512-poly").compile().runtime.device,
+        "make_pp_mesh": lambda: pipeline.make_pp_mesh().devices[0],
+        "make_sharded_fastdot_search": lambda: _fastdot_search_device(),
+        "bert_parity.run_parity's embedder": lambda: bert_parity.port_embedder(
+            _tiny_bert(tmp)).device,
+        "multihost.main": lambda: multihost.main(
+            ["127.0.0.1:0", "1", "0", "--store", _tiny_store(tmp), "--preset", "test-512",
+             "--top-k", "2"]) and None,
+        "measure_ondevice_loop": lambda: profiling.measure_ondevice_loop(
+            lambda t: t + 1, 1, 2, 1) and None,
+        "attainable_read_bw": lambda: profiling.attainable_read_bw(1 << 20, 1) and None,
+        "analysis.run_sweep": lambda: analysis_reduction.run_sweep(
+            np.eye(8, dtype=np.float32), (4,), ("pca",), None, False) and None,
+        "QuantizationTester": lambda: quantization.QuantizationTester(
+            8, "test-512", 1).test_bit_width(4) and None,
     }
+
+
+def _fastdot_search_device():
+    from fhe_icp_tpu_torch.ops.context import CryptoContext
+    from fhe_icp_tpu_torch.ops.params import get_params
+    from fhe_icp_tpu_torch.parallel.mesh import make_mesh
+    from fhe_icp_tpu_torch.parallel.search import make_sharded_fastdot_search
+    mesh = make_mesh(2)
+    make_sharded_fastdot_search(CryptoContext(get_params("test-512"), device="cpu"), mesh)
+    return mesh.devices[0]
+
+
+def _tiny_bert(tmp):
+    """A tiny random BERT checkpoint (PyTorch weights) with its tokenizer."""
+    import transformers
+    path = tmp / "tiny_bert"
+    path.mkdir()
+    (path / "vocab.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
+                                               "the", "fox"]) + "\n")
+    transformers.BertTokenizerFast(vocab_file=str(path / "vocab.txt")).save_pretrained(path)
+    cfg = transformers.BertConfig(vocab_size=7, hidden_size=8, num_hidden_layers=1,
+                                  num_attention_heads=2, intermediate_size=16)
+    transformers.BertModel(cfg).save_pretrained(path)
+    return str(path)
+
+
+def _tiny_store(tmp):
+    import numpy as np
+    path = tmp / "store.npz"
+    rng = np.random.default_rng(0)
+    np.savez(path, docs=rng.integers(-9, 9, (8, 128)).astype(np.int32),
+             queries=rng.integers(-9, 9, (1, 128)).astype(np.int32))
+    return str(path)
 
 
 def _reducer_file(tmp):
@@ -136,7 +222,11 @@ def _trained(model):
                                   "DimensionReducer.load", "BertEmbedder", "BatchProcessor",
                                   "FHEDocumentCLI", "cli.main", "EncryptedDocument.ciphertext",
                                   "FHESimilarityModel.compile",
-                                  "FHEPolynomialSimilarity.compile"])
+                                  "FHEPolynomialSimilarity.compile", "make_pp_mesh",
+                                  "make_sharded_fastdot_search",
+                                  "bert_parity.run_parity's embedder", "multihost.main",
+                                  "measure_ondevice_loop", "attainable_read_bw",
+                                  "analysis.run_sweep", "QuantizationTester"])
 def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """Without CUDA the default device raises, naming CUDA; it never runs on the CPU."""
     monkeypatch.setenv("FHE_MASTER_PASSWORD", "test-password-123")
