@@ -1,0 +1,7 @@
+"""Per cent of the profiled compare window with the device idle."""
+
+from portbench.metrics import _read
+
+
+def read(run):
+    return _read.idle_share(run)
