@@ -40,6 +40,7 @@ from .models.similarity import FHESimilarityModel
 from .ops import arith, pack
 from .ops.cipher import Ciphertext
 from .store import EncryptedDocument, EncryptedDocumentStore
+from .utils.profiling import span
 from .utils.quantize import DEFAULT_SCALE, dequantize_score, prepare_embedding_for_fhe
 
 logger = logging.getLogger(__name__)
@@ -138,7 +139,8 @@ class BatchProcessor:
         if used > self.config.max_memory_mb:
             logger.warning("memory %.0f MB over limit %d MB; forcing gc",
                            used, self.config.max_memory_mb)
-            gc.collect()
+            with span("ingest.gc"):
+                gc.collect()
 
     # -- ingestion ---------------------------------------------------------
     # First-ingestion corpora at least target_dim large get a PCA reducer,
@@ -180,8 +182,11 @@ class BatchProcessor:
         return self.reducer
 
     def _embed_reduce(self, texts: List[str]) -> np.ndarray:
-        embs = self.embedder.get_embeddings_batch(texts, batch_size=min(8, len(texts)))
-        return self._ensure_reducer(embs).transform(embs)
+        with span("ingest.embed"):
+            embs = self.embedder.get_embeddings_batch(texts, batch_size=min(8, len(texts)))
+        reducer = self._ensure_reducer(embs)
+        with span("ingest.reduce"):
+            return reducer.transform(embs)
 
     def encrypt_documents(self, texts: List[str],
                           doc_ids: Optional[List[str]] = None,
@@ -233,9 +238,11 @@ class BatchProcessor:
         pre_reduced: Dict[int, np.ndarray] = {}
         if self.reducer is None and texts:
             k = min(len(texts), self.REDUCER_FIT_MAX)
-            embs = self.embedder.get_embeddings_batch(texts[:k], batch_size=min(8, k))
+            with span("ingest.embed"):
+                embs = self.embedder.get_embeddings_batch(texts[:k], batch_size=min(8, k))
             self._fit_reducer(embs)
-            red = self.reducer.transform(embs)
+            with span("ingest.reduce"):
+                red = self.reducer.transform(embs)
             pre_reduced = {i: red[i] for i in range(k)}
 
         iterator = range(0, len(texts), self.config.batch_size)
@@ -257,14 +264,17 @@ class BatchProcessor:
             if missing:
                 pre_reduced.update(zip(missing, self._embed_reduce([texts[i] for i in missing])))
             reduced = np.stack([pre_reduced.pop(i) for i in idxs])
-            quantized = np.stack([prepare_embedding_for_fhe(r, self.scale)[0] for r in reduced])
-            # seed=None: fresh randomness for every encryption.  Seeds from
-            # doc ids would reuse (a, e) when changed content is
-            # re-encrypted under the same ids (c0 - c0' = m - m' leaks).
-            ct_fwd = self.runtime.encrypt_vector(quantized)
-            ct_rev = self.runtime.encrypt_vector(quantized, rev=True)
-            # fwd + rev stacked along the poly axis: (B, 4, L, N).
-            data = torch.cat([ct_fwd.data, ct_rev.data], dim=1).cpu().numpy()
+            with span("ingest.quantize"):
+                quantized = np.stack([prepare_embedding_for_fhe(r, self.scale)[0]
+                                      for r in reduced])
+            with span("ingest.encrypt"):
+                # seed=None: fresh randomness for every encryption.  Seeds from
+                # doc ids would reuse (a, e) when changed content is
+                # re-encrypted under the same ids (c0 - c0' = m - m' leaks).
+                ct_fwd = self.runtime.encrypt_vector(quantized)
+                ct_rev = self.runtime.encrypt_vector(quantized, rev=True)
+                # fwd + rev stacked along the poly axis: (B, 4, L, N).
+                data = torch.cat([ct_fwd.data, ct_rev.data], dim=1).cpu().numpy()
             now = time.time()
             for i, (doc_id, text, meta) in enumerate(zip(ids, batch, metas)):
                 doc = EncryptedDocument(
@@ -282,7 +292,8 @@ class BatchProcessor:
                 done.append(doc_id)
             self.storage.flush_index()              # one index write a batch
             if self.config.force_gc and len(done) % self.config.checkpoint_interval == 0:
-                gc.collect()
+                with span("ingest.gc"):
+                    gc.collect()
         logger.info("encrypted %d documents", len(done))
         return done_pre + done
 

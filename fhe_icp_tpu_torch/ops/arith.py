@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .cipher import Ciphertext, centered_residues
 from .context import CryptoContext, HybridTables
 from .modmath import (add_mod, barrett_reduce, i64, mont_mul, neg_mod, sub_mod, to_mont,
@@ -90,15 +91,16 @@ def mul_ct(ctx: CryptoContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     if a.k != 2 or b.k != 2:
         raise ValueError(f"mul_ct needs degree-1 ciphertexts, got k={a.k}, {b.k}")
     l = a.level
-    p, pinv = ctx.lp(l), ctx.lpinv(l)
-    bm = to_mont(b.data, p, pinv, ctx.lr2(l))
-    a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
-    b0, b1 = bm[..., 0, :, :], bm[..., 1, :, :]
-    c0 = mont_mul(a0, b0, p, pinv)
-    c1 = add_mod(mont_mul(a0, b1, p, pinv), mont_mul(a1, b0, p, pinv), p)
-    c2 = mont_mul(a1, b1, p, pinv)
-    return Ciphertext(torch.stack([c0, c1, c2], dim=-3), l, True,
-                      a.pt_corr * b.pt_corr % ctx.t)
+    with span("ct.tensor"):
+        p, pinv = ctx.lp(l), ctx.lpinv(l)
+        bm = to_mont(b.data, p, pinv, ctx.lr2(l))
+        a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
+        b0, b1 = bm[..., 0, :, :], bm[..., 1, :, :]
+        c0 = mont_mul(a0, b0, p, pinv)
+        c1 = add_mod(mont_mul(a0, b1, p, pinv), mont_mul(a1, b0, p, pinv), p)
+        c2 = mont_mul(a1, b1, p, pinv)
+        return Ciphertext(torch.stack([c0, c1, c2], dim=-3), l, True,
+                          a.pt_corr * b.pt_corr % ctx.t)
 
 
 def _flatten_batch(x: torch.Tensor):
@@ -175,25 +177,26 @@ def _div_special(ctx: CryptoContext, ht: HybridTables, x_ntt: torch.Tensor, l: i
     forward over the l limbs, and x*P^{-1} - w*(t*P^{-1}) stays pointwise
     (1 + l limb transforms a polynomial instead of (l+1) + l).
     """
-    x_ntt, lead = _flatten_batch(x_ntt)                   # (B', l+1, N)
-    sp, sp_pinv = ht.p[l, 0], ht.pinv[l, 0]
-    p, pinv = ctx.lp(l), ctx.lpinv(l)
-    if x_ntt.shape[0] < _REUSE_MIN_BATCH:
-        x = ntt_inv(ht.plan, x_ntt)
-        u = mont_mul(x[..., l:, :], ht.t_inv_mont_sp[0, 0], sp, sp_pinv)
-        w = _lift_centered(u, p, ctx.mu_p[:l], ht.sp_half[0, 0], ht.sp_mod_pi)
-        delta = mont_mul(w, ctx.t_mont_p[:l], p, pinv)
-        out = ntt_fwd(ctx.plan, mont_mul(sub_mod(x[..., :l, :], delta, p), ht.inv_sp_mont,
-                                         p, pinv))
-    else:
-        sp_plan = _single_prime_plan(ctx, ctx.params.special_prime)
-        x_sp = ntt_inv(sp_plan, x_ntt[..., l:, :])         # (B', 1, N) coeff
-        u = mont_mul(x_sp, ht.t_inv_mont_sp[0, 0], sp, sp_pinv)
-        w_ntt = ntt_fwd(ctx.plan, _lift_centered(u, p, ctx.mu_p[:l], ht.sp_half[0, 0],
-                                                 ht.sp_mod_pi))
-        out = sub_mod(mont_mul(x_ntt[..., :l, :], ht.inv_sp_mont, p, pinv),
-                      mont_mul(w_ntt, ht.t_inv_sp_mont, p, pinv), p)
-    return out if lead is None else out.reshape(lead + tuple(out.shape[-2:]))
+    with span("ks.div_special"):
+        x_ntt, lead = _flatten_batch(x_ntt)                   # (B', l+1, N)
+        sp, sp_pinv = ht.p[l, 0], ht.pinv[l, 0]
+        p, pinv = ctx.lp(l), ctx.lpinv(l)
+        if x_ntt.shape[0] < _REUSE_MIN_BATCH:
+            x = ntt_inv(ht.plan, x_ntt)
+            u = mont_mul(x[..., l:, :], ht.t_inv_mont_sp[0, 0], sp, sp_pinv)
+            w = _lift_centered(u, p, ctx.mu_p[:l], ht.sp_half[0, 0], ht.sp_mod_pi)
+            delta = mont_mul(w, ctx.t_mont_p[:l], p, pinv)
+            out = ntt_fwd(ctx.plan, mont_mul(sub_mod(x[..., :l, :], delta, p), ht.inv_sp_mont,
+                                             p, pinv))
+        else:
+            sp_plan = _single_prime_plan(ctx, ctx.params.special_prime)
+            x_sp = ntt_inv(sp_plan, x_ntt[..., l:, :])         # (B', 1, N) coeff
+            u = mont_mul(x_sp, ht.t_inv_mont_sp[0, 0], sp, sp_pinv)
+            w_ntt = ntt_fwd(ctx.plan, _lift_centered(u, p, ctx.mu_p[:l], ht.sp_half[0, 0],
+                                                     ht.sp_mod_pi))
+            out = sub_mod(mont_mul(x_ntt[..., :l, :], ht.inv_sp_mont, p, pinv),
+                          mont_mul(w_ntt, ht.t_inv_sp_mont, p, pinv), p)
+        return out if lead is None else out.reshape(lead + tuple(out.shape[-2:]))
 
 
 def hybrid_keyswitch_apply(ctx: CryptoContext, ksk: torch.Tensor, c_ntt: torch.Tensor, l: int):
@@ -213,35 +216,37 @@ def hybrid_keyswitch_apply(ctx: CryptoContext, ksk: torch.Tensor, c_ntt: torch.T
     pe, pinve = ht.p, ht.pinv
     n_dig, n = ksk.shape[0], ctx.n
     d_per = n_dig // l
-    c_coeff = ntt_inv(ctx.plan, c_ntt)                    # (B, l, N)
-    if d_per == 1 and c_ntt.shape[0] >= _REUSE_MIN_BATCH:
-        # Digit j is limb j of c, so its transform at extended limb j is the
-        # input slice itself: only the other l extended limbs are transformed.
-        pe64, mu64 = i64(pe), i64(ht.mu)
-        d_list = []
-        for j in range(l):
-            others = [i for i in range(l + 1) if i != j]
-            d_res = barrett_reduce(c_coeff[:, j:j + 1, :], pe64[others], mu64[others])
-            d_o = ntt_fwd(_digit_plan(ctx, l, j), d_res)  # (B, l, N)
-            d_list.append(torch.cat([d_o[:, :j], c_ntt[:, j:j + 1], d_o[:, j:]], dim=-2))
-        d_ntt = torch.stack(d_list, dim=1)                # (B, l, l+1, N)
-    elif d_per == 1:
-        # Small batches: one combined transform over every digit.
-        d_res = barrett_reduce(c_coeff.reshape(-1, 1, n), pe, ht.mu)   # (B*l, l+1, N)
-        d_ntt = ntt_fwd(ht.plan, d_res).reshape(-1, n_dig, l + 1, n)
-    else:
-        if d_per != 2:
-            raise ValueError(f"only 16-bit sub-digits are supported ({n_dig} digits, l={l})")
-        c64 = i64(c_coeff)
-        d = u32(torch.stack([c64 & 0xFFFF, c64 >> 16], dim=-2)).reshape(-1, 1, n)
-        # Digits < 2^16 < every prime: the residues are the values themselves.
-        d_ntt = ntt_fwd(ht.plan, d.expand(-1, l + 1, n)).reshape(-1, n_dig, l + 1, n)
+    with span("ks.digits"):
+        c_coeff = ntt_inv(ctx.plan, c_ntt)                    # (B, l, N)
+        if d_per == 1 and c_ntt.shape[0] >= _REUSE_MIN_BATCH:
+            # Digit j is limb j of c, so its transform at extended limb j is the
+            # input slice itself: only the other l extended limbs are transformed.
+            pe64, mu64 = i64(pe), i64(ht.mu)
+            d_list = []
+            for j in range(l):
+                others = [i for i in range(l + 1) if i != j]
+                d_res = barrett_reduce(c_coeff[:, j:j + 1, :], pe64[others], mu64[others])
+                d_o = ntt_fwd(_digit_plan(ctx, l, j), d_res)  # (B, l, N)
+                d_list.append(torch.cat([d_o[:, :j], c_ntt[:, j:j + 1], d_o[:, j:]], dim=-2))
+            d_ntt = torch.stack(d_list, dim=1)                # (B, l, l+1, N)
+        elif d_per == 1:
+            # Small batches: one combined transform over every digit.
+            d_res = barrett_reduce(c_coeff.reshape(-1, 1, n), pe, ht.mu)   # (B*l, l+1, N)
+            d_ntt = ntt_fwd(ht.plan, d_res).reshape(-1, n_dig, l + 1, n)
+        else:
+            if d_per != 2:
+                raise ValueError(f"only 16-bit sub-digits are supported ({n_dig} digits, l={l})")
+            c64 = i64(c_coeff)
+            d = u32(torch.stack([c64 & 0xFFFF, c64 >> 16], dim=-2)).reshape(-1, 1, n)
+            # Digits < 2^16 < every prime: the residues are the values themselves.
+            d_ntt = ntt_fwd(ht.plan, d.expand(-1, l + 1, n)).reshape(-1, n_dig, l + 1, n)
     acc0 = acc1 = None
-    for j in range(n_dig):
-        t0 = mont_mul(d_ntt[:, j], ksk[j, 0], pe, pinve)
-        t1 = mont_mul(d_ntt[:, j], ksk[j, 1], pe, pinve)
-        acc0 = t0 if acc0 is None else add_mod(acc0, t0, pe)
-        acc1 = t1 if acc1 is None else add_mod(acc1, t1, pe)
+    with span("ks.inner"):
+        for j in range(n_dig):
+            t0 = mont_mul(d_ntt[:, j], ksk[j, 0], pe, pinve)
+            t1 = mont_mul(d_ntt[:, j], ksk[j, 1], pe, pinve)
+            acc0 = t0 if acc0 is None else add_mod(acc0, t0, pe)
+            acc1 = t1 if acc1 is None else add_mod(acc1, t1, pe)
     out = _div_special(ctx, ht, torch.stack([acc0, acc1], dim=-3), l)
     d0, d1 = out[..., 0, :, :], out[..., 1, :, :]
     if squeeze:
@@ -264,12 +269,13 @@ def relinearize(ctx: CryptoContext, rlk_keys, ct: Ciphertext) -> Ciphertext:
     if ct.k != 3 or not ct.is_ntt:
         raise ValueError(f"relinearize needs a degree-2 NTT-domain ciphertext (k={ct.k})")
     l = ct.level
-    p = ctx.lp(l)
-    lead = tuple(ct.data.shape[:-3])
-    data = ct.data.reshape((-1,) + tuple(ct.data.shape[-3:]))    # (B, 3, l, N)
-    d0, d1 = keyswitch_apply(ctx, rlk_keys[l], data[:, 2], l)
-    out = torch.stack([add_mod(data[:, 0], d0, p), add_mod(data[:, 1], d1, p)], dim=-3)
-    return Ciphertext(out.reshape(lead + (2, l, ctx.n)), l, True, ct.pt_corr)
+    with span("ct.relinearize"):
+        p = ctx.lp(l)
+        lead = tuple(ct.data.shape[:-3])
+        data = ct.data.reshape((-1,) + tuple(ct.data.shape[-3:]))    # (B, 3, l, N)
+        d0, d1 = keyswitch_apply(ctx, rlk_keys[l], data[:, 2], l)
+        out = torch.stack([add_mod(data[:, 0], d0, p), add_mod(data[:, 1], d1, p)], dim=-3)
+        return Ciphertext(out.reshape(lead + (2, l, ctx.n)), l, True, ct.pt_corr)
 
 
 def rekey(ctx: CryptoContext, ksk: torch.Tensor, ct: Ciphertext) -> Ciphertext:
@@ -312,19 +318,20 @@ def mod_switch(ctx: CryptoContext, ct: Ciphertext) -> Ciphertext:
             f"mod_switch to level {l - 1} leaves insufficient noise headroom "
             f"(q'={ctx.q_at(l - 1).bit_length()} bits vs t={ctx.t.bit_length()} "
             f"bits, N={ctx.n})")
-    lt = ctx.levels[l]
-    lead = ct.data.shape[:-2]                            # (..., k)
-    flat = ct.data.reshape((-1,) + tuple(ct.data.shape[-2:]))   # (B*k, l, N)
-    pd_plan = _single_prime_plan(ctx, ctx.primes[l - 1])
-    c_last = ntt_inv(pd_plan, flat[:, l - 1:, :])        # (B*k, 1, N) coeff
-    u = mont_mul(c_last, lt.t_inv_mont_pd[0, 0], ctx.p[l - 1, 0],
-                 ctx.p_neg_inv[l - 1, 0])                # [c*t^{-1}]_{p_d}
-    p, pinv = ctx.lp(l - 1), ctx.lpinv(l - 1)
-    w = _lift_centered(u, p, ctx.mu_p[: l - 1], lt.pd_half[0, 0], lt.pd_mod_pi)
-    delta = ntt_fwd(ctx.plan, mont_mul(w, ctx.t_mont_p[: l - 1], p, pinv))
-    out = mont_mul(sub_mod(flat[:, : l - 1, :], delta, p), lt.inv_pd_mont, p, pinv)
-    return Ciphertext(out.reshape(lead + (l - 1, ctx.n)), l - 1, True,
-                      ct.pt_corr * ctx.primes[l - 1] % ctx.t)
+    with span("ct.mod_switch"):
+        lt = ctx.levels[l]
+        lead = ct.data.shape[:-2]                            # (..., k)
+        flat = ct.data.reshape((-1,) + tuple(ct.data.shape[-2:]))   # (B*k, l, N)
+        pd_plan = _single_prime_plan(ctx, ctx.primes[l - 1])
+        c_last = ntt_inv(pd_plan, flat[:, l - 1:, :])        # (B*k, 1, N) coeff
+        u = mont_mul(c_last, lt.t_inv_mont_pd[0, 0], ctx.p[l - 1, 0],
+                     ctx.p_neg_inv[l - 1, 0])                # [c*t^{-1}]_{p_d}
+        p, pinv = ctx.lp(l - 1), ctx.lpinv(l - 1)
+        w = _lift_centered(u, p, ctx.mu_p[: l - 1], lt.pd_half[0, 0], lt.pd_mod_pi)
+        delta = ntt_fwd(ctx.plan, mont_mul(w, ctx.t_mont_p[: l - 1], p, pinv))
+        out = mont_mul(sub_mod(flat[:, : l - 1, :], delta, p), lt.inv_pd_mont, p, pinv)
+        return Ciphertext(out.reshape(lead + (l - 1, ctx.n)), l - 1, True,
+                          ct.pt_corr * ctx.primes[l - 1] % ctx.t)
 
 
 def mod_switch_to(ctx: CryptoContext, ct: Ciphertext, level: int) -> Ciphertext:

@@ -32,6 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .search import make_sharded_packed_search
 
 logger = logging.getLogger(__name__)
@@ -148,11 +149,13 @@ def search_host_shard(ctx, mesh, doc_digits, query_digits, d: int, shard: HostSh
     """
     step = make_sharded_packed_search(ctx, mesh, d=d, top_k=top_k)
     flat, _, _ = step(doc_digits, query_digits)
-    scores = flat.cpu().numpy().astype(np.int64)
-    offset = shard.start * slots
-    valid = min(scores.shape[0], max(0, n_docs_global - offset))
-    vals, idx = local_topk(scores[:valid], top_k, index_offset=offset)
-    return global_topk(vals, idx, top_k)
+    with span("search.to_host"):
+        scores = flat.cpu().numpy().astype(np.int64)
+    with span("search.rank"):
+        offset = shard.start * slots
+        valid = min(scores.shape[0], max(0, n_docs_global - offset))
+        vals, idx = local_topk(scores[:valid], top_k, index_offset=offset)
+        return global_topk(vals, idx, top_k)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

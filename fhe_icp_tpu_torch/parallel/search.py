@@ -34,6 +34,7 @@ from ..ops.cipher import Ciphertext, SecretKey
 from ..ops.context import CryptoContext
 from ..ops.encoding import encode_rev
 from ..ops.modmath import mont_mul
+from ..utils.profiling import span
 from .mesh import DOC_OPERAND_SPEC, DP_AXIS, PACKED_OPERAND_SPEC, TP_AXIS, Mesh, Spec
 
 
@@ -137,25 +138,28 @@ def make_sharded_packed_search(ctx: CryptoContext, mesh: Mesh, d: int, top_k: in
         flats, vals, idxs = [], [], []
         for i in range(n_dp):
             digits = doc_shards[mesh.index({DP_AXIS: i})]
-            c = ctxs[digits.device]
-            docs = pack.PackedDocOperand(digits, level)
-            q = pack.PackedQueryOperand(queries[digits.device], level, d, slots)
-            flat = pack.packed_scores(c, docs, q, pt_corr).reshape(-1)
-            base = i * flat.shape[0]
-            ranked = flat
-            if n_docs is not None and n_docs < n_dp * flat.shape[0]:
-                pos = base + torch.arange(flat.shape[0], device=flat.device)
-                ranked = torch.where(pos < n_docs, flat, low)
-            k = min(top_k, flat.shape[0])
-            l_vals, l_idx = topk_hierarchical(ranked, k)
-            flats.append(flat.to(out_dev))
-            vals.append(l_vals.to(out_dev))
-            idxs.append((l_idx + base).to(out_dev))
-        vals_all, idx_all = torch.cat(vals), torch.cat(idxs)
-        # With few scores per shard the global top-k spans shards, so the
-        # merge keeps up to top_k of all n_dp * k candidates.
-        m_vals, m_pos = torch.topk(vals_all, min(top_k, vals_all.shape[0]))
-        return torch.cat(flats), m_vals, idx_all[m_pos]
+            with span("search.score"):
+                c = ctxs[digits.device]
+                docs = pack.PackedDocOperand(digits, level)
+                q = pack.PackedQueryOperand(queries[digits.device], level, d, slots)
+                flat = pack.packed_scores(c, docs, q, pt_corr).reshape(-1)
+            with span("search.topk_device"):
+                base = i * flat.shape[0]
+                ranked = flat
+                if n_docs is not None and n_docs < n_dp * flat.shape[0]:
+                    pos = base + torch.arange(flat.shape[0], device=flat.device)
+                    ranked = torch.where(pos < n_docs, flat, low)
+                k = min(top_k, flat.shape[0])
+                l_vals, l_idx = topk_hierarchical(ranked, k)
+                flats.append(flat.to(out_dev))
+                vals.append(l_vals.to(out_dev))
+                idxs.append((l_idx + base).to(out_dev))
+        with span("search.topk_device"):
+            vals_all, idx_all = torch.cat(vals), torch.cat(idxs)
+            # With few scores per shard the global top-k spans shards, so the
+            # merge keeps up to top_k of all n_dp * k candidates.
+            m_vals, m_pos = torch.topk(vals_all, min(top_k, vals_all.shape[0]))
+            return torch.cat(flats), m_vals, idx_all[m_pos]
 
     return step
 

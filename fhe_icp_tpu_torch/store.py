@@ -29,6 +29,7 @@ import torch
 
 from .interop import ciphertext_from_array
 from .ops.cipher import Ciphertext
+from .utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -70,9 +71,10 @@ class EncryptedDocument:
             "model_version": self.model_version, "key_id": self.key_id,
             "metadata": self.metadata,
         }
-        np.savez_compressed(buf, header=np.frombuffer(
-            json.dumps(header).encode(), dtype=np.uint8), ct=self.ct_data)
-        return buf.getvalue()
+        with span("store.serialize"):
+            np.savez_compressed(buf, header=np.frombuffer(
+                json.dumps(header).encode(), dtype=np.uint8), ct=self.ct_data)
+            return buf.getvalue()
 
     @classmethod
     def from_bytes(cls, raw: bytes) -> "EncryptedDocument":
@@ -105,9 +107,12 @@ class EncryptedDocumentStore:
     def _flush_index(self) -> None:
         # Atomic: a temp file then a rename, so a crash mid-write never
         # corrupts the whole index.
-        tmp = self.index_path.with_suffix(".json.tmp")
-        tmp.write_text(json.dumps(self.index, indent=2))
-        os.replace(tmp, self.index_path)
+        with span("store.index_flush"):
+            tmp = self.index_path.with_suffix(".json.tmp")
+            raw = json.dumps(self.index, indent=2).encode()
+            tmp.write_bytes(raw)
+            os.replace(tmp, self.index_path)
+        count("store.bytes_written", len(raw))
 
     def _doc_path(self, doc_id: str) -> Path:
         safe = hashlib.sha256(doc_id.encode()).hexdigest()[:16]
@@ -120,11 +125,14 @@ class EncryptedDocumentStore:
         doc.validate()
         raw = doc.to_bytes()
         path = self._doc_path(doc.doc_id)
-        path.write_bytes(raw)
+        with span("store.write"):
+            path.write_bytes(raw)
+            digest = hashlib.sha256(raw).hexdigest()
+        count("store.bytes_written", len(raw))
         self.index[doc.doc_id] = {
             "file": path.name,
             "size_bytes": len(raw),
-            "sha256": hashlib.sha256(raw).hexdigest(),
+            "sha256": digest,
             "timestamp": doc.timestamp,
             "dim": doc.dim,
             "key_id": doc.key_id,

@@ -1,7 +1,14 @@
-"""Profiling, roofline accounting, the card's data-sheet bounds and a metrics registry.
+"""Profiling, roofline accounting, the card's data-sheet bounds and the
+program's own spans and counters.
 
+* `span(name)`, `count(name, n)`, `request(i)` and `recording()` — the
+  program's spans and counters at its layer boundaries, kept in memory
+  while a `recording()` is open and free otherwise.  Times come from
+  `time.time_ns()`, the clock `torch.profiler` stamps its events with, so a
+  span lines up with the device's activity in the same profile.
 * `trace(dir)` — `torch.profiler` around a block, exported as a Chrome
-  trace (Perfetto, chrome://tracing).
+  trace (Perfetto, chrome://tracing), the program's spans beside the
+  profiler's events.
 * `measure(fn, *args)` and `measure_chained(step_fn)` — host-clock times
   that synchronize the device the tensors live on.
 * `measure_ondevice_loop(body)` — per-step time from the slope between two
@@ -11,7 +18,6 @@
 * `CARD_SPECS`, `card_spec()`, `hbm_spec_gbs()` — the published peaks of a
   card, by `torch.cuda.get_device_name`: the denominators of every bound
   `chip_smoke.py` prints.
-* `Metrics` — an append-only registry with JSON export.
 """
 
 from __future__ import annotations
@@ -21,10 +27,11 @@ import json
 import os
 import statistics
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -50,21 +57,154 @@ def _sync(*objs) -> None:
         torch.cuda.synchronize(dev)
 
 
+# ---------------------------------------------------------------------------
+# The program's spans and counters
+# ---------------------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    """One recorded span; times in ns on `time.time_ns()`'s clock."""
+
+    name: str
+    request: Optional[int]      # set by the enclosing `request(i)`, else None
+    parent: Optional[int]       # index of the enclosing span in `Recording.spans`
+    start_ns: int
+    end_ns: int
+
+
+@dataclass
+class Recording:
+    """What one `recording()` recorded, filled in when its block ends: the
+    spans in the order they opened, and the counters."""
+
+    spans: List[Span] = field(default_factory=list)
+    counters: Dict[str, int] = field(default_factory=dict)
+
+    def self_ns(self) -> List[int]:
+        """Each span's duration less the time its child spans cover (children
+        run one after another on the recording's thread)."""
+        out = [s.end_ns - s.start_ns for s in self.spans]
+        for s in self.spans:
+            if s.parent is not None:
+                out[s.parent] -= s.end_ns - s.start_ns
+        return out
+
+
+class _Recorder:
+    """An open recording: spans as [name, request, parent, start, end] lists,
+    the stack of open spans, the current request id and the counters."""
+
+    __slots__ = ("thread", "spans", "stack", "request", "counters")
+
+    def __init__(self):
+        self.thread = threading.get_ident()
+        self.spans: List[list] = []
+        self.stack: List[int] = []
+        self.request: Optional[int] = None
+        self.counters: Dict[str, int] = {}
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "index")
+
+    def __init__(self, rec: _Recorder, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        self.index = len(rec.spans)
+        rec.spans.append([self.name, rec.request, rec.stack[-1] if rec.stack else None,
+                          time.time_ns(), 0])
+        rec.stack.append(self.index)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        rec = self.rec
+        rec.spans[self.index][4] = time.time_ns()
+        rec.stack.pop()
+        return False
+
+
+_NULL = contextlib.nullcontext()
+# The open recording, if any.  Only `recording()` sets it; spans and counts
+# from other threads than the one that opened it are not recorded.
+_recorder: Optional[_Recorder] = None
+
+
+def span(name: str):
+    """Inside a `recording()`, a context manager that records its block as the
+    span `name`; outside one, the shared null context."""
+    rec = _recorder
+    if rec is None or rec.thread != threading.get_ident():
+        return _NULL
+    return _OpenSpan(rec, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Inside a `recording()`, add n to the counter `name`; outside one, nothing."""
+    rec = _recorder
+    if rec is not None and rec.thread == threading.get_ident():
+        rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def request(i: int):
+    """Inside a `recording()`: the spans opened in the block belong to request i."""
+    rec = _recorder
+    if rec is None:
+        yield
+        return
+    before, rec.request = rec.request, i
+    try:
+        yield
+    finally:
+        rec.request = before
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the program's spans and counters over the block, from the thread
+    that enters it; yields the `Recording`, filled in when the block ends.
+    One recording at a time."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("a recording is already open")
+    rec, out = _Recorder(), Recording()
+    _recorder = rec
+    try:
+        yield out
+    finally:
+        _recorder = None
+        out.spans = [Span(*s) for s in rec.spans]
+        out.counters = dict(rec.counters)
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """torch.profiler over the block (the card's activity too where there is
-    one), written to `log_dir`/trace.json; yields the directory."""
+    one), written to `log_dir`/trace.json with the program's spans on the
+    calling thread's track, above the operations they launched; yields the
+    directory."""
     from torch.profiler import ProfilerActivity, profile
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "fhe-trace")
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with recording() as rec, profile(activities=acts) as prof:
         yield log_dir
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+    path = Path(log_dir) / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    # The export's "ts" is in us after its base time (absolute where it names none).
+    base, pid, tid = int(doc.get("baseTimeNanoseconds", 0)), os.getpid(), threading.get_native_id()
+    doc["traceEvents"] += [
+        {"ph": "X", "cat": "program", "name": s.name, "pid": pid, "tid": tid,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"request": s.request}} for s in rec.spans]
+    path.write_text(json.dumps(doc))
 
 
 def measure(fn: Callable, *args, iters: int = 16, warmup: int = 1) -> Dict:
@@ -218,28 +358,3 @@ def attainable_read_bw(nbytes: int = 800_000_000, iters: int = 8,
     r = roofline(lambda a: a.sum(dtype=torch.int64), x, bytes_accessed=rows * cols,
                  iters=iters)
     return r["gb_per_s"]
-
-
-@dataclass
-class Metrics:
-    """Append-only metrics registry with JSON export."""
-
-    records: List[Dict] = field(default_factory=list)
-
-    def log(self, name: str, value: Any, **attrs) -> None:
-        self.records.append({"name": name, "value": value, "t": time.time(), **attrs})
-
-    def latest(self, name: str) -> Optional[Any]:
-        for rec in reversed(self.records):
-            if rec["name"] == name:
-                return rec["value"]
-        return None
-
-    def to_json(self, path: Optional[str] = None) -> str:
-        s = json.dumps(self.records, indent=2, default=str)
-        if path:
-            Path(path).write_text(s)
-        return s
-
-
-METRICS = Metrics()

@@ -41,7 +41,7 @@ REST_OF_PACKAGE = {
                            "local_topk", "merge_topk", "global_topk", "search_host_shard"),
     "utils.profiling": ("trace", "measure", "measure_chained", "measure_ondevice_loop",
                         "roofline", "keyswitch_footprint", "HBM_SPEC_GBS", "hbm_spec_gbs",
-                        "attainable_read_bw", "Metrics", "METRICS"),
+                        "attainable_read_bw"),
     "utils.debug": ("KNOWN_ISSUES", "RELEVANT_ENV", "check_environment", "memory_monitor"),
     "analysis": ("alternatives", "linear_math", "quantization", "reduction"),
     "analysis.alternatives": ("FHEFriendlySimilarity", "benchmark"),

@@ -1,9 +1,9 @@
 """The port's profiling and debug utilities against the JAX package's.
 
 `keyswitch_footprint` equals JAX's; the data-sheet table names cards, not
-TPUs, and answers None without a card; the timers, the roofline, the
-trace export and the metrics registry work on the CPU (no device number is
-read from them here); the environment probe and the memory monitor report.
+TPUs, and answers None without a card; the timers, the roofline and the
+trace export, with the program's spans in it, work on the CPU (no device
+number is read from them here); the environment probe and the memory monitor report.
 """
 
 import json
@@ -55,19 +55,16 @@ def test_timers_and_roofline_on_the_cpu():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "t")) as d:
-        torch.ones(64).cumsum(0)
+        with profiling.span("test.cumsum"):
+            torch.ones(64).cumsum(0)
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
     assert d == str(tmp_path / "t") and events
-
-
-def test_metrics_registry(tmp_path):
-    reg = profiling.Metrics()
-    reg.log("ops_per_s", 123.0, config="test")
-    reg.log("ops_per_s", 456.0)
-    assert reg.latest("ops_per_s") == 456.0 and reg.latest("missing") is None
-    reg.to_json(str(tmp_path / "m.json"))
-    assert json.loads((tmp_path / "m.json").read_text())[0]["config"] == "test"
-    assert isinstance(profiling.METRICS, profiling.Metrics)
+    (mine,) = [e for e in events if e.get("cat") == "program"]
+    ops = [e for e in events if e.get("name") == "aten::cumsum"]
+    assert mine["name"] == "test.cumsum" and ops
+    # On the profiler's timeline, above the operation it launched.
+    assert all(mine["ts"] <= e["ts"] and e["ts"] + e["dur"] <= mine["ts"] + mine["dur"]
+               and e["tid"] == mine["tid"] for e in ops)
 
 
 def test_check_environment_reports():
