@@ -27,7 +27,13 @@ Phases (any failure raises and the exit code is not 0):
    groups), the test-512 shape (4S = 16, 2N = 1024) and ring-16384's at d
    = 128 and 64 (4S = 512 and 1024, in column tiles); the all-to-all at 2,
    4 and 8 shards, at both exchanges of the ring-16384 four-step NTT and
-   at a chunk that is not a multiple of 16 B.
+   at a chunk that is not a multiple of 16 B; the keyswitch's inner
+   product (`KS_SHAPES`) at one ring-16384 relinearization (1, 12, 13,
+   16384), an odd ring-16384 batch of 3, two compares, the batch >= 32
+   regime (32 and 1024 products) and 16-bit sub-digits at pairwise-4096
+   (an odd 33 and the store's 2048); digits one word into their storage
+   are refused.  The build must show every keyswitch instance without a
+   stack frame.
 3. The main path at full width, preset pairwise-4096 (N = 4096, 2 limbs):
    keys from seed 0, 65,536 per-document quantized unit vectors
    (d = 128, scale 1000) encrypted in batches of 8192, packed into 2048
@@ -71,9 +77,11 @@ Phases (any failure raises and the exit code is not 0):
    relinearize -> mod_switch -> decrypt_dot exact; (e) config 8,
    galois-4096 `dot_ct_ct_slots(d=128)` with 16-bit-digit rotation keys,
    slot [0, 0] exact.  Launch counts are zeroed before the cases: K2
-   forward and inverse must have risen, K1, K3 and K2's cyclic entries
-   must not have launched.  Then each case's host time (median of 7 after
-   the first), K2 launches and device time a run, the card's busy time
+   forward and inverse and the keyswitch kernel must have risen, K1, K3
+   and K2's cyclic entries must not have launched; a relinearized compare
+   of (a) and a run of (d) launch the keyswitch kernel exactly once, and
+   (d) prints our kernels' launches a run.  Then each case's host time
+   (median of 7 after the first), K2 launches and device time a run, the card's busy time
    and idle share, and both branches of `arith._REUSE_MIN_BATCH` at batch
    32 for (b) and (c).  Phase 2 holds K2 on this path's plans: the hybrid
    plans (pairwise-4096 and ring-16384), the digit plans, the special
@@ -93,7 +101,10 @@ Phases (any failure raises and the exit code is not 0):
    the inputs it was timed on.  The scoring kernel is
    timed at 2048 groups (the JSON row) and at one 391-group shard, the
    all-to-all at the ring-16384 exchange (the JSON row) and at 256 MiB,
-   each also by its device time per call from torch.profiler.
+   each also by its device time per call from torch.profiler.  The
+   keyswitch inner product at one ring-16384 relinearization (the JSON
+   row) and the store's re-key, by device time with the key in L2 and
+   after a 100 MB write.
 8. The rest of the package (`rest_of_package`), after phase 7 and before
    phase 6's times; launch counts are zeroed before (a)-(e), with the
    oracles' and timings' launches left out: K2 must have risen in this
@@ -125,6 +136,7 @@ last line is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import gc
@@ -154,7 +166,8 @@ from fhe_icp_tpu_torch import cli, entry, kernels  # noqa: E402
 from fhe_icp_tpu_torch.batch import BatchProcessor  # noqa: E402
 from fhe_icp_tpu_torch.models.embedder import HashingEmbedder  # noqa: E402
 from fhe_icp_tpu_torch.models.reduction import DimensionReducer  # noqa: E402
-from fhe_icp_tpu_torch.ops import arith, galois, noise, ntt_cuda, pack, pack_cuda  # noqa: E402
+from fhe_icp_tpu_torch.ops import (arith, galois, keyswitch_cuda, noise, ntt_cuda,  # noqa: E402
+                                   pack, pack_cuda)
 from fhe_icp_tpu_torch.ops import primes as pr  # noqa: E402
 from fhe_icp_tpu_torch.ops.cipher import Ciphertext, decrypt_coeff, rekey_keygen  # noqa: E402
 from fhe_icp_tpu_torch.ops.context import CryptoContext  # noqa: E402
@@ -202,10 +215,12 @@ KERNELS = {
     "ntt_cyclic_fwd": ("fhe_icp_tpu_torch/csrc/ntt.cu", "fhe_icp_tpu/ops/ntt_pallas.py:152"),
     "ntt_cyclic_inv": ("fhe_icp_tpu_torch/csrc/ntt.cu", "fhe_icp_tpu/ops/ntt_pallas.py:165"),
     "all_to_all": ("fhe_icp_tpu_torch/csrc/all_to_all.cu", "fhe_icp_tpu/parallel/ici.py:28"),
+    "keyswitch_inner": ("fhe_icp_tpu_torch/csrc/keyswitch.cu",
+                        "none: XLA fused fhe_icp_tpu/ops/arith.py's digit loop"),
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pack_score")
-COMPARE_PATH_KERNELS = ("ntt_fwd", "ntt_inv")
+COMPARE_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "keyswitch_inner")
 NOT_ON_COMPARE_PATH = ("pack_score", "all_to_all", "ntt_cyclic_fwd", "ntt_cyclic_inv")
 SHARD_PATH_KERNELS = ("all_to_all", "pack_score", "ntt_fwd", "ntt_cyclic_fwd",
                       "ntt_cyclic_inv")
@@ -301,6 +316,9 @@ def device_and_build() -> str:
     ntt = {k: v for k, v in report.items() if k.startswith("ntt_")}
     check(len(ntt) == 32 and all(st == 0 for _, st in ntt.values()),
           f"K2 instances with a stack frame, or missing from the build log: {ntt}")
+    ks = {k: v for k, v in report.items() if k.startswith("keyswitch_inner_kernel")}
+    check(len(ks) == 3 and all(st == 0 for _, st in ks.values()),
+          f"keyswitch instances with a stack frame, or missing from the build log: {ks}")
     print("kernels:", " ".join(KERNELS))
     return smi
 
@@ -316,7 +334,8 @@ def ptxas_report(log: str) -> dict:
     """{kernel: (registers, stack bytes)} from nvcc's -Xptxas -v output.
 
     K2's templates are named ntt_block_kernel<fwd, twist, C> and
-    ntt_warp_kernel<fwd, twist, E>; other kernels keep ptxas's name.
+    ntt_warp_kernel<fwd, twist, E>, the keyswitch's keyswitch_inner_kernel<BT>;
+    other kernels keep ptxas's name.
     """
     out, name = {}, None
     for line in log.splitlines():
@@ -326,6 +345,9 @@ def ptxas_report(log: str) -> dict:
             t = re.search(r"(ntt_(?:block|warp)_kernel)ILb(\d)ELb(\d)ELi(\d+)E", name)
             if t:
                 name = f"{t.group(1)}<{t.group(2)}, {t.group(3)}, {t.group(4)}>"
+            t = re.search(r"(keyswitch_inner_kernel)ILi(\d+)E", name)
+            if t:
+                name = f"{t.group(1)}<{t.group(2)}>"
             continue
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and name:
@@ -374,6 +396,7 @@ def kernels_vs_plain(rng) -> dict:
     print("  mod_switch_to(2) at test-512-mult: card == CPU, decrypts exactly")
     compare_plans_vs_plain(rng, errs)
     user_plans_vs_plain(rng, errs)
+    keyswitch_vs_plain(rng, errs)
     all_to_all_vs_plain(rng, errs)
     return errs
 
@@ -448,6 +471,53 @@ def user_plans_vs_plain(rng, errs: dict) -> None:
             errs[name] = max(errs[name], e)
     print("  K2 fwd and inv bit-exact at the user path's shapes: "
           + "; ".join(f"{what} {lead}" for what, _, lead in cases))
+
+
+# The keyswitch inner product's shapes: (what, preset, level, batch, digits a limb).
+KS_SHAPES = ((f"one {RING} relinearization", RING, 12, 1, 1),
+             (f"an odd {RING} batch", RING, 12, 3, 1),
+             ("two compares", PRESET, 2, 2, 1),
+             (f"{COMPARE_PAIRS} products (the batch >= _REUSE_MIN_BATCH regime)", PRESET, 2,
+              COMPARE_PAIRS, 1),
+             ("the all-pairs matrix", PRESET, 2, COMPARE_PAIRS ** 2, 1),
+             ("an odd batch of re-keyed ciphertexts (16-bit digits)", PRESET, 2, 33, 2),
+             ("the store's re-key (16-bit digits)", PRESET, 2,
+              N_DOCS // pack.slots_per_ct(get_params(PRESET).n, DIM), 2))
+
+
+def ks_operands(rng, preset: str, lv: int, b: int, per: int) -> tuple:
+    """Random canonical digits (b, per * lv, lv + 1, N) and key (per * lv, 2, lv + 1, N)
+    over the preset's extended chain at level lv, with its prime columns."""
+    ht = runtime(preset, (lv,)).ctx.hybrid(lv)
+    n_dig, n = per * lv, ht.plan.n
+    return (random_residues(rng, ht.plan, (b, n_dig, lv + 1, n)),
+            random_residues(rng, ht.plan, (n_dig, 2, lv + 1, n)), ht.p, ht.pinv)
+
+
+def keyswitch_vs_plain(rng, errs: dict) -> None:
+    """The keyswitch inner product against its plain version at every regime's
+    shape (`KS_SHAPES`: BT = 1, 2 and 4 rows a thread, ragged batches); digits
+    that start one word into their storage are refused by the C entry."""
+    for what, preset, lv, b, per in KS_SHAPES:
+        d, k, p, pinv = ks_operands(rng, preset, lv, b, per)
+        e = max_abs_err(keyswitch_cuda.inner_product(d, k, p, pinv),
+                        keyswitch_cuda.inner_product_ref(d, k, p, pinv))
+        check(e == 0, f"keyswitch_inner at {what} {tuple(d.shape)}: max abs err {e}")
+        errs["keyswitch_inner"] = max(errs["keyswitch_inner"], e)
+    d, k, p, pinv = ks_operands(rng, PRESET, 2, 3, 1)
+    buf = torch.empty(d.numel() + 1, dtype=d.dtype, device=DEVICE)
+    view = buf[1:].view(d.shape)
+    view.copy_(d)
+    try:
+        keyswitch_cuda.inner_product(view, k, p, pinv)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "keyswitch_inner took digits one word into their storage")
+    print("  keyswitch_inner bit-exact: " + "; ".join(
+        f"{what} (B={b}, n_dig={per * lv}, L={lv + 1}, {preset})"
+        for what, preset, lv, b, per in KS_SHAPES) + "; digits one word into their storage "
+        "refused")
 
 
 NTT_ENTRIES = (("ntt_fwd", ntt_cuda.ntt_fwd, ntt_cuda.ntt_fwd_ref),
@@ -1004,7 +1074,10 @@ def single_compare(pair: np.ndarray) -> dict:
     ct_a = rt.encrypt_vector(pair[0], seed=2)
     ct_b = rt.encrypt_vector(pair[1], seed=3, rev=True)
     want = int(pair[0].astype(np.int64) @ pair[1])
+    ks0 = kernels.launches["keyswitch_inner"]
     prod = rt.dot_ct_ct(ct_a, ct_b)
+    ks = kernels.launches["keyswitch_inner"] - ks0
+    check(ks == 1, f"a relinearized compare launched keyswitch_inner {ks} times, not once")
     got = int(rt.decrypt_dot(prod, DIM))
     got2 = int(rt.decrypt_dot(rt.dot_ct_ct(ct_a, ct_b, relinearize=False), DIM))
     check(got == want and got2 == want, f"compare {got} / degree 2 {got2}, want {want}")
@@ -1111,10 +1184,14 @@ def ring_chain(pair: np.ndarray) -> dict:
     def run():
         prod = arith.relinearize(ctx, rt.keys.rlk, arith.mul_ct(ctx, ct_a, ct_b))
         return rt.decrypt_dot(arith.mod_switch(ctx, prod), DIM).cpu()
+    before = collections.Counter(kernels.launches)
     got, want = int(run()), int(pair[0].astype(np.int64) @ pair[1])
+    per_run = dict(collections.Counter(kernels.launches) - before)
     check(got == want, f"{RING} chain: {got}, want {want}")
+    check(per_run.get("keyswitch_inner", 0) == 1,
+          f"{RING} chain launched keyswitch_inner {per_run.get('keyswitch_inner', 0)} times")
     print(f"  (d) config 4: {RING} (N={ctx.n}, L={ctx.n_limbs}) mul_ct -> relinearize -> "
-          f"mod_switch -> decrypt_dot == a . b ({got})")
+          f"mod_switch -> decrypt_dot == a . b ({got}); our kernels' launches a run: {per_run}")
     return dict(name="(d) config 4", runs={"mul + relinearize + mod_switch + decrypt_dot": run})
 
 
@@ -1822,6 +1899,7 @@ def timings(rng, errs: dict, launches: dict, smi: str) -> list:
     # One shard of the multi-shard store: 3125 groups padded to 3128, over 8.
     pack_score_timing(-(-N_DOCS_SHARDED // slots // PAD_GROUPS) * PAD_GROUPS // N_SHARDS)
     out.append(all_to_all_timings())
+    out.append(keyswitch_timings(rng))
     for row in out:
         src, rep = KERNELS[row["name"]]
         row.update(route="cuda", source=src, replaces=rep,
@@ -1904,6 +1982,45 @@ def k2_only(tree: str) -> None:
               flush=True)
 
 
+def keyswitch_timings(rng) -> dict:
+    """The keyswitch inner product at one ring-16384 relinearization (the JSON
+    row) and at the store's re-key (16-bit digits, B = 2048), each checked
+    bit-exact on its timed inputs: CUDA events around the wrapper, device time
+    per call with the key left in L2 by the call before (as between compares)
+    and with a 100 MB write between calls, beside the plain version and the
+    bound (each digit and key word read once, each sum written once; four
+    32-bit multiplies a Montgomery product)."""
+    flush = torch.empty(25 * 2 ** 20, dtype=torch.int32, device=DEVICE)
+    row = None
+    for what, preset, lv, b, per in (KS_SHAPES[0], KS_SHAPES[-1]):
+        d, k, p, pinv = ks_operands(rng, preset, lv, b, per)
+        n_dig, limbs, n = d.shape[1:]
+
+        def kern():
+            return keyswitch_cuda.inner_product(d, k, p, pinv)
+
+        def ref():
+            return keyswitch_cuda.inner_product_ref(d, k, p, pinv)
+        e = max_abs_err(kern(), ref())
+        check(e == 0, f"keyswitch_inner at {what} (the timed inputs): max abs err {e}")
+        ms = cuda_ms(kern, reps=20)
+        warm = device_us_per_call(kern, "keyswitch_inner", calls=20)
+        cold = device_us_per_call(lambda: (flush.zero_(), kern()), "keyswitch_inner", calls=20)
+        plain = cuda_ms(ref, reps=3, warmup=1)
+        words = (b * n_dig + 2 * n_dig + 2 * b) * limbs * n
+        bound_ms, kind, why = bound(4 * words, 4 * 2 * b * n_dig * limbs * n,
+                                    peaks().int32_mul_tops * 1e12)
+        print(f"  keyswitch_inner at {what} (B={b}, n_dig={n_dig}, L={limbs}, N={n}): "
+              f"{ms:.4f} ms (CUDA events around the wrapper); device time per call "
+              f"{fmt_us(warm)} with the key in L2, {fmt_us(cold)} after a 100 MB write; "
+              f"bit-exact; plain {plain:.3f} ms; bound {bound_ms:.5f} ms ({why}; "
+              f"{4 * words / 1e6:.1f} MB)")
+        if row is None:
+            row = dict(name="keyswitch_inner", ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                       bound_by=kind, library_ms=None)
+    return row
+
+
 def pack_score_timing(g: int) -> dict:
     """K1 on G groups of the slice's preset: the wrapper, the device, the yardstick."""
     ctx = CryptoContext(get_params(PRESET), DEVICE)
@@ -1933,19 +2050,29 @@ def pack_score_timing(g: int) -> dict:
                 library_ms=lib)
 
 
-def device_us_per_call(fn, kernel: str, calls: int = 10):
+def device_us_per_call(fn, kernel: str, calls: int = 10, attempts: int = 3):
     """Device time per fn() of the kernels whose name holds `kernel` (torch.profiler),
-    or None if none was recorded."""
+    or None if none was recorded.
+
+    Each fn() that launches such a kernel launches one or more, so a profile
+    holding fewer than `calls` of them lost events (torch 2.11 on the H100 kept
+    only a few of every other profile late in this script); it is taken again,
+    up to `attempts` times, and None if no profile is whole."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    return sum(spans) / calls if spans else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if not spans:
+            return None
+        if len(spans) >= calls:
+            return sum(spans) / calls
+    return None
 
 
 def fmt_us(us) -> str:

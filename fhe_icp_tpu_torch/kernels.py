@@ -17,8 +17,9 @@ K1's TMA descriptors are encoded by a driver function that
 `pack_score.cu` fetches through the runtime.
 
 `launches` counts, per kernel, the launches made by the wrappers in
-`ops/ntt_cuda.py`, `ops/pack_cuda.py` and `parallel/ici.py`; it lets a
-caller show that a run went through the kernels.
+`ops/ntt_cuda.py`, `ops/pack_cuda.py`, `ops/keyswitch_cuda.py` and
+`parallel/ici.py`; it lets a caller show that a run went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "fhe_pack_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fhe_all_to_all": [_P, _P, _I, _P, _I, _L, _P],
     "fhe_enable_peer_access": [_I, _I],
+    "fhe_keyswitch_inner": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 launches: collections.Counter = collections.Counter()

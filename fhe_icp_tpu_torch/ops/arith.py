@@ -13,7 +13,8 @@ rotations (`galois.apply_galois`).  `hybrid_keyswitch_apply` has three
 regimes that give identical integers: full-limb digits at a batch of
 `_REUSE_MIN_BATCH` or more (per-digit plans that skip the limb whose
 transform is the input), full-limb digits below it (one combined
-transform over all digits), and 16-bit sub-digits.
+transform over all digits), and 16-bit sub-digits.  In all three the
+digit-key inner product is one kernel (`keyswitch_cuda.inner_product`).
 
 In `_div_special` and `mod_switch` only the dropped limb leaves the NTT
 domain: its coefficient form gives the rounding correction, which is
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.profiling import span
+from . import keyswitch_cuda
 from .cipher import Ciphertext, centered_residues
 from .context import CryptoContext, HybridTables
 from .modmath import (add_mod, barrett_reduce, i64, mont_mul, neg_mod, sub_mod, to_mont,
@@ -240,14 +242,9 @@ def hybrid_keyswitch_apply(ctx: CryptoContext, ksk: torch.Tensor, c_ntt: torch.T
             d = u32(torch.stack([c64 & 0xFFFF, c64 >> 16], dim=-2)).reshape(-1, 1, n)
             # Digits < 2^16 < every prime: the residues are the values themselves.
             d_ntt = ntt_fwd(ht.plan, d.expand(-1, l + 1, n)).reshape(-1, n_dig, l + 1, n)
-    acc0 = acc1 = None
     with span("ks.inner"):
-        for j in range(n_dig):
-            t0 = mont_mul(d_ntt[:, j], ksk[j, 0], pe, pinve)
-            t1 = mont_mul(d_ntt[:, j], ksk[j, 1], pe, pinve)
-            acc0 = t0 if acc0 is None else add_mod(acc0, t0, pe)
-            acc1 = t1 if acc1 is None else add_mod(acc1, t1, pe)
-    out = _div_special(ctx, ht, torch.stack([acc0, acc1], dim=-3), l)
+        acc = keyswitch_cuda.inner_product(d_ntt, ksk, pe, pinve)   # (B, 2, l+1, N)
+    out = _div_special(ctx, ht, acc, l)
     d0, d1 = out[..., 0, :, :], out[..., 1, :, :]
     if squeeze:
         d0, d1 = d0[0], d1[0]
