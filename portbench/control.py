@@ -18,8 +18,6 @@ import json
 import sys
 import time
 
-import torch
-
 from portbench import harness, run
 
 
@@ -30,16 +28,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("portbench.control: no CUDA card", file=sys.stderr)
+    devices = run.cell_cards(args.workload)
+    if devices is None:
         return 2
     entry = harness.find(harness.manifest()["workloads"], args.workload, "workload")
     driver = harness.load_module(
         "drivers", harness.load_json("traffic", f"{entry['traffic']}.json")["driver"])
     for seed in args.seeds:
-        res = run.run_cell(args.workload, seed, args.seconds, False, torch.device("cuda", 0),
+        res = run.run_cell(args.workload, seed, args.seconds, False, devices[0],
                            serve=lambda st, req, tracer: driver.control(st, req),
-                           t_process=time.perf_counter())
+                           t_process=time.perf_counter(), devices=devices)
         print(json.dumps({"workload": args.workload, "seed": seed, "control": True,
                           "correct": res["correct"], "attempted": res["attempted"],
                           "checks": res["checks"]}), flush=True)

@@ -28,6 +28,13 @@ operations and the kernels' time, with the kernels' C entry points
 recorded with their shapes.  The second adds the host's operations and
 the spans as marks, which slow the host: only the idle gaps by span are
 read from it.  In a run that is not traced, spans cost nothing.
+
+A cell runs on the `chips` cards its entry in the manifest asks for,
+`cuda:0` to `cuda:<chips-1>` (`Cell.devices`).  Every wait of the
+harness (a span's end, the window's start and end, a profiled stretch)
+waits for all of them, and the profile is read card by card: a card's
+busy time is the union of its own operations, and the run's busy time is
+the mean over the cell's cards.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import time
 import traceback
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,6 +78,13 @@ class Check:
         return self.value <= self.limit
 
 
+Devices = Union[torch.device, Sequence[torch.device]]
+
+
+def as_tuple(devices: Devices) -> Tuple[torch.device, ...]:
+    return (devices,) if isinstance(devices, torch.device) else tuple(devices)
+
+
 @dataclass
 class Cell:
     """What a driver is given: the cell, its run's arguments and its data files."""
@@ -79,23 +93,33 @@ class Cell:
     seed: int
     seconds: float
     trace: bool
-    device: torch.device
+    devices: Devices      # the cell's cards in card order; kept as a tuple
     config: dict
     mix: dict
     tracer: "Tracer"
 
+    def __post_init__(self):
+        self.devices = as_tuple(self.devices)
 
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    @property
+    def device(self) -> torch.device:
+        """The first of the cell's cards."""
+        return self.devices[0]
+
+
+def sync(devices: Devices) -> None:
+    """Wait for every card of `devices` (one device or several)."""
+    for d in as_tuple(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 class Tracer:
     """Spans, kernel launch records and the profiler of a traced run."""
 
-    def __init__(self, enabled: bool, device: torch.device):
+    def __init__(self, enabled: bool, devices: Devices):
         self.enabled = enabled
-        self.device = device
+        self.devices = as_tuple(devices)
         self.spans: Dict[str, List[float]] = collections.defaultdict(list)
         self.profiling: Optional[str] = None     # the profiled stretch: "device" or "host"
         self.launches: Dict[str, list] = {"k1": [], "k2": []}
@@ -115,7 +139,7 @@ class Tracer:
             return
         t0 = time.perf_counter()
         yield
-        sync(self.device)
+        sync(self.devices)
         self.spans[name].append(time.perf_counter() - t0)
 
     def record_kernel_entries(self) -> None:
@@ -140,29 +164,30 @@ class Tracer:
 
     def _profiler(self, host: bool):
         from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CUDA] if self.device.type == "cuda" else []
+        acts = [ProfilerActivity.CUDA] if any(d.type == "cuda" for d in self.devices) else []
         if host or not acts:
             acts.append(ProfilerActivity.CPU)
         return profile(activities=acts)
 
     def warm_profiler(self) -> None:
-        """Start and stop each profiler once, so that its first start (CUPTI's
-        set-up) falls outside the window."""
+        """Start and stop each profiler once, with an operation on each card, so
+        that its first start (CUPTI's set-up) falls outside the window."""
         for host in (False, True):
             with self._profiler(host):
-                torch.zeros(1, device=self.device).add_(1)
-                sync(self.device)
+                for d in self.devices:
+                    torch.zeros(1, device=d).add_(1)
+                sync(self.devices)
 
     def run_profiled(self, kind: str, drive) -> tuple:
         """`drive()` under the profiler as the `kind` stretch ("device" or
         "host"); returns (the profiler, the stretch's seconds, drive's result)."""
-        sync(self.device)
+        sync(self.devices)
         prof = self._profiler(kind == "host")
         with prof:
             self.profiling = kind
             t0 = time.perf_counter()
             out = drive()
-            sync(self.device)
+            sync(self.devices)
             seconds = time.perf_counter() - t0
             self.profiling = None
         return prof, seconds, out
@@ -178,10 +203,24 @@ def _union(spans: List[tuple]) -> List[tuple]:
     return [tuple(x) for x in out]
 
 
-def read_profile(prof, window_s: float, span_names: set, launches: dict) -> dict:
+def card_indices(devices: Devices) -> List[int]:
+    """The profiler's device index of each card, in card order; a device
+    without an index (the CPU) counts by its place."""
+    return [i if d.index is None else d.index for i, d in enumerate(as_tuple(devices))]
+
+
+def read_profile(prof, window_s: float, span_names: set, launches: dict,
+                 cards: Sequence[int]) -> dict:
     """Busy time, device time by operation and kernel, and idle gaps by the
-    harness span the host was in, from the profiled stretch after the window."""
-    device, host = [], []
+    harness span the host was in, from the profiled stretch after the window.
+
+    `cards` are the device indices of the cell's cards.  Each card's busy
+    time is the union of its own operations' intervals (0 for a card with
+    none); `busy_s` is their mean over the cards, `busy_s_by_card` each in
+    card order.  Idle gaps are found on each card's own timeline and summed
+    over the cards.  Operations and kernel times sum over every card."""
+    by_card: Dict[int, list] = collections.defaultdict(list)
+    host = []
     for e in prof.events():
         if e.name in span_names:
             # A span's own range; its copy on the device's timeline is an
@@ -189,12 +228,12 @@ def read_profile(prof, window_s: float, span_names: set, launches: dict) -> dict
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 host.append((e.time_range.start, e.time_range.end, e.name))
         elif e.device_type == torch.autograd.DeviceType.CUDA:
-            device.append((e.name, e.time_range.start, e.time_range.end))
-    busy_iv = _union([(s, e) for _, s, e in device])
-    busy_us = sum(e - s for s, e in busy_iv)
+            by_card[e.device_index].append((e.name, e.time_range.start, e.time_range.end))
+    busy_iv = [_union([(s, e) for _, s, e in by_card.get(c, ())]) for c in cards]
+    busy_us = [sum(e - s for s, e in iv) for iv in busy_iv]
     by_op: Dict[str, float] = collections.defaultdict(float)
     kernel_us = {"k1": 0.0, "k2": 0.0}
-    for name, s, e in device:
+    for name, s, e in (op for ops in by_card.values() for op in ops):
         by_op[name] += e - s
         if any(k in name for k in K1_KERNELS):
             kernel_us["k1"] += e - s
@@ -203,16 +242,18 @@ def read_profile(prof, window_s: float, span_names: set, launches: dict) -> dict
     host.sort()
     starts = [h[0] for h in host]
     idle: Dict[str, float] = collections.defaultdict(float)
-    for (_, e0), (s1, _) in zip(busy_iv, busy_iv[1:]):
-        mid, label, best = (e0 + s1) / 2, "between spans", None
-        i = bisect.bisect_right(starts, mid)
-        for s, e, name in host[max(0, i - 8): i]:
-            if s <= mid <= e and (best is None or e - s < best):
-                label, best = name, e - s
-        idle[label] += s1 - e0
+    for iv in busy_iv:
+        for (_, e0), (s1, _) in zip(iv, iv[1:]):
+            mid, label, best = (e0 + s1) / 2, "between spans", None
+            i = bisect.bisect_right(starts, mid)
+            for s, e, name in host[max(0, i - 8): i]:
+                if s <= mid <= e and (best is None or e - s < best):
+                    label, best = name, e - s
+            idle[label] += s1 - e0
     return {
         "window_s": window_s,
-        "busy_s": busy_us / 1e6,
+        "busy_s": sum(busy_us) / len(cards) / 1e6,
+        "busy_s_by_card": [b / 1e6 for b in busy_us],
         "device_ops": {k: v / 1e6 for k, v in by_op.items()},
         "idle_by_span": {k: v / 1e6 for k, v in idle.items()},
         "kernel_s": {k: v / 1e6 for k, v in kernel_us.items()},
@@ -285,7 +326,7 @@ def closed_loop(cell: Cell, request, serve, state, seconds: float, first: int = 
     from fhe_icp_tpu_torch import kernels
     answers, lat, failed = [], [], 0
     before = collections.Counter(kernels.launches)
-    sync(cell.device)
+    sync(cell.devices)
     t_start = time.perf_counter()
     deadline = t_start + seconds
     i = first
@@ -317,7 +358,8 @@ def profiled_stretch(cell: Cell, request, serve, state, first: int) -> tuple:
     for kind in ("device", "host"):
         prof, stretch_s, (more, _, bad, _, _, _) = tracer.run_profiled(
             kind, lambda: closed_loop(cell, request, serve, state, seconds, first + len(answers)))
-        read[kind] = read_profile(prof, stretch_s, set(tracer.spans), tracer.launches)
+        read[kind] = read_profile(prof, stretch_s, set(tracer.spans), tracer.launches,
+                                  card_indices(tracer.devices))
         print(f"[portbench] {kind} stretch: {len(more)} requests in {stretch_s:.4f} s, "
               f"{1e3 * stretch_s / max(len(more), 1):.4f} ms a request, device busy "
               f"{read[kind]['busy_s']:.6f} s", file=sys.stderr)

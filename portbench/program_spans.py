@@ -53,19 +53,6 @@ PER_REQUEST = {
     "compare.ks_div_ms": "ks.div_special",
     "compare.mod_switch_ms": "ct.mod_switch",
 }
-# Metric: the span whose self time it reads, the window's total over the
-# documents stored, in ms a document.
-PER_DOC = {
-    "ingest.embed_ms_per_doc": "ingest.embed",
-    "ingest.reduce_ms_per_doc": "ingest.reduce",
-    "ingest.encrypt_ms_per_doc": "ingest.encrypt",
-    "ingest.serialize_ms_per_doc": "store.serialize",
-    "ingest.write_ms_per_doc": "store.write",
-    "ingest.index_ms_per_doc": "store.index_flush",
-    "ingest.gc_ms_per_doc": "ingest.gc",
-}
-# Metric: the counter it reads over the documents stored.
-COUNTER_PER_DOC = {"ingest.bytes_per_doc": "store.bytes_written"}
 # Metric of device operations launched a request, by the count of the
 # cell's requests it is read in.
 LAUNCHES = {"queries": "search.launches_per_query", "compares": "compare.launches_per_compare"}
@@ -91,7 +78,7 @@ def self_ms_by_request(rec: profiling.Recording) -> Dict[int, Dict[str, float]]:
     return out
 
 
-def span_metrics(rec: profiling.Recording, counts: Dict[str, float]) -> Dict[str, float]:
+def span_metrics(rec: profiling.Recording) -> Dict[str, float]:
     """The per-layer metrics the recording has something for."""
     out: Dict[str, float] = {}
     by_req = self_ms_by_request(rec)
@@ -99,18 +86,6 @@ def span_metrics(rec: profiling.Recording, counts: Dict[str, float]) -> Dict[str
     for metric, name in PER_REQUEST.items():
         if name in present and by_req:
             out[metric] = float(np.median([r.get(name, 0.0) for r in by_req.values()]))
-    docs = counts.get("docs_stored")
-    if docs:
-        total: Dict[str, float] = collections.defaultdict(float)
-        for r in by_req.values():
-            for name, ms in r.items():
-                total[name] += ms
-        for metric, name in PER_DOC.items():
-            if name in present:
-                out[metric] = total[name] / docs
-        for metric, name in COUNTER_PER_DOC.items():
-            if name in rec.counters:
-                out[metric] = rec.counters[name] / docs
     return out
 
 
@@ -144,15 +119,18 @@ def _is_device_op(e, labels: set) -> bool:
     return e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in labels
 
 
-def _busy(events: list, labels: set) -> List[list]:
-    """The union of the device operations' intervals, in ns."""
-    out: List[list] = []
-    for s, e in sorted((ev.start_ns(), ev.end_ns()) for ev in events if _is_device_op(ev, labels)):
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
+def _busy(events: list, labels: set) -> Dict[int, List[list]]:
+    """Each card's union of its device operations' intervals, in ns, by the
+    card's device index."""
+    out: Dict[int, List[list]] = collections.defaultdict(list)
+    for c, s, e in sorted((ev.device_index(), ev.start_ns(), ev.end_ns())
+                          for ev in events if _is_device_op(ev, labels)):
+        iv = out[c]
+        if iv and s <= iv[-1][1]:
+            iv[-1][1] = max(iv[-1][1], e)
         else:
-            out.append([s, e])
-    return out
+            iv.append([s, e])
+    return dict(out)
 
 
 def _innermost(rec: profiling.Recording, times: List[float]) -> List[Optional[int]]:
@@ -184,12 +162,14 @@ def idle_gaps(prof, rec: profiling.Recording, harness_names: set) -> dict:
     """Seconds of device idle time by the innermost span the host was in at
     each gap's midpoint ("between spans" outside every span), the same with
     the harness spans alone as labels, and for each harness span the share
-    of the gaps inside it that no program span inside it labels.  None
-    without two stretches of device activity."""
+    of the gaps inside it that no program span inside it labels.  Gaps are
+    found on each card's own timeline and summed over the cards.  None
+    without two stretches of device activity on some card."""
     busy = _busy(_raw_events(prof), {s.name for s in rec.spans})
-    if len(busy) < 2:
+    gaps = sorted(((e0 + s1) / 2, (s1 - e0) / 1e9) for iv in busy.values()
+                  for (_, e0), (s1, _) in zip(iv, iv[1:]))
+    if not gaps:
         return None
-    gaps = [((e0 + s1) / 2, (s1 - e0) / 1e9) for (_, e0), (s1, _) in zip(busy, busy[1:])]
     by_span: Dict[str, float] = collections.defaultdict(float)
     by_harness: Dict[str, float] = collections.defaultdict(float)
     left: Dict[str, List[float]] = collections.defaultdict(lambda: [0.0, 0.0])
@@ -242,17 +222,20 @@ def launches(prof, rec: profiling.Recording, harness_names: set) -> Optional[dic
 
 
 def run_cell(cell_name: str, seed: int, seconds: float, device: torch.device,
-             config: Optional[dict] = None, mix: Optional[dict] = None) -> dict:
+             config: Optional[dict] = None, mix: Optional[dict] = None,
+             devices: Optional[Sequence[torch.device]] = None) -> dict:
     """One run of `cell_name` with the program's spans; returns the result
-    object (`config` and `mix` replace the cell's data files)."""
+    object (`config` and `mix` replace the cell's data files; `devices` are
+    the cell's cards, `device` first, by default `device` alone)."""
     t_process = time.perf_counter()
+    devices = tuple(devices) if devices else (device,)
     man = harness.manifest()
     entry = harness.find(man["workloads"], cell_name, "workload")
     config = config or harness.load_json("configs", f"{entry['config']}.json")
     mix = mix or harness.load_json("traffic", f"{entry['traffic']}.json")
     driver = harness.load_module("drivers", mix["driver"])
-    tracer = ProgramTracer(True, device)
-    cell = harness.Cell(cell_name, seed, seconds, True, device, config, mix, tracer)
+    tracer = ProgramTracer(True, devices)
+    cell = harness.Cell(cell_name, seed, seconds, True, devices, config, mix, tracer)
     state = driver.setup(cell)
     tracer.warm_profiler()
     setup_s = time.perf_counter() - t_process
@@ -290,7 +273,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, device: torch.device,
 
     driver.release(state)
     checks = driver.check(state, answers)
-    metrics = span_metrics(rec, counts)
+    metrics = span_metrics(rec)
     kind = next((k for k in LAUNCHES if counts.get(k)), None)
     if launched is not None and kind:
         metrics[LAUNCHES[kind]] = launched["per_request"]
@@ -320,10 +303,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True, help="length of the window")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("portbench.program_spans: no CUDA card", file=sys.stderr)
+    devices = bench.cell_cards(args.workload)
+    if devices is None:
         return 2
-    res = run_cell(args.workload, args.seed, args.seconds, torch.device("cuda", 0))
+    res = run_cell(args.workload, args.seed, args.seconds, devices[0], devices=devices)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -17,12 +17,9 @@ def small_data(cell: str):
     if mix["driver"] == "packed_search":
         cfg.update(preset="test-512", store_docs=300)
         mix.update(enc_batch=128, warmup_requests=1, check_sample=16, profile_s=0.2)
-    elif mix["driver"] == "ct_compare":
+    else:
         cfg.update(preset="test-512-mult", rlk_levels=[3], plaintext_modulus=1073479681)
         mix.update(pool=16, enc_batch=8, warmup_requests=1, profile_s=0.2)
-    else:
-        cfg.update(preset="test-512-mult", plaintext_modulus=1073479681)
-        mix.update(fit_texts=140, texts_per_request=10, check_sample=16, profile_s=0.2)
     return cfg, mix
 
 

@@ -2,7 +2,6 @@
 with the timed path broken underneath: every fault makes `correct` false."""
 
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -11,12 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import harness
+from portbench import harness, run
 from small import SEED, run_small, small_data
 
 from fhe_icp_tpu_torch.ops import runtime as port_runtime
 from fhe_icp_tpu_torch.parallel import multihost
-from fhe_icp_tpu_torch.store import EncryptedDocumentStore
 
 ROOT = Path(__file__).resolve().parents[2]
 CELLS = [w["name"] for w in harness.manifest()["workloads"]]
@@ -62,8 +60,6 @@ def test_same_seed_same_inputs(cell):
         st = driver.setup(harness.Cell(cell, SEED, 0.1, False, cpu, cfg, mix, tracer))
         reqs.append([driver.request(st, i) for i in range(3)])
         driver.release(st)
-        if hasattr(st, "base"):
-            shutil.rmtree(st.base, ignore_errors=True)
     a, b = reqs
     assert repr([np.asarray(x).tolist() for x in a]) == repr([np.asarray(x).tolist() for x in b])
 
@@ -85,18 +81,10 @@ def _answer_altered(monkeypatch, cell):
             vals, idx = real(*a, **k)
             return vals, np.concatenate([idx[1:], idx[:1]])
         monkeypatch.setattr(multihost, "search_host_shard", altered)
-    elif cell == "compare-ring16384":
+    else:
         real = port_runtime.FheRuntime.decrypt_dot
         monkeypatch.setattr(port_runtime.FheRuntime, "decrypt_dot",
                             lambda self, ct, d: real(self, ct, d) + 1)
-    else:
-        real = port_runtime.FheRuntime.encrypt_vector
-
-        def altered(self, vec, seed=None, rev=False):
-            vec = torch.as_tensor(vec).clone()
-            vec[0] = vec[0].roll(1)                 # one document of each batch
-            return real(self, vec, seed=seed, rev=rev)
-        monkeypatch.setattr(port_runtime.FheRuntime, "encrypt_vector", altered)
 
 
 def _state_unchanged(monkeypatch, cell):
@@ -105,31 +93,19 @@ def _state_unchanged(monkeypatch, cell):
         monkeypatch.setattr(multihost, "search_host_shard",
                             lambda ctx, mesh, docs, q, *a, **k: real(ctx, mesh, docs, q * 0,
                                                                      *a, **k))
-    elif cell == "compare-ring16384":       # the product returns its first factor
+    else:                                   # the product returns its first factor
         monkeypatch.setattr(port_runtime.FheRuntime, "mul_ct",
                             lambda self, a, b, relinearize=True: a)
-    else:                                   # documents never written to the store
-        monkeypatch.setattr(EncryptedDocumentStore, "save",
-                            lambda self, doc, flush=True: None)
 
 
 def _half_left_out(monkeypatch, cell):
-    if cell == "search-100k":               # half of the store's groups scored
-        real = multihost.search_host_shard
+    """Half of the store's groups scored (the search's batch)."""
+    real = multihost.search_host_shard
 
-        def half(ctx, mesh, docs, q, d, shard, slots, n_docs, top_k=5):
-            cut = [x[:, : x.shape[1] // 2 // 4 * 4] for x in docs]
-            return real(ctx, mesh, cut, q, d, shard, slots, n_docs, top_k=top_k)
-        monkeypatch.setattr(multihost, "search_host_shard", half)
-    else:                                   # half of each batch encrypted, the rest repeated
-        real = port_runtime.FheRuntime.encrypt_vector
-
-        def half(self, vec, seed=None, rev=False):
-            vec = torch.as_tensor(vec).clone()
-            h = (len(vec) + 1) // 2
-            vec[h:] = vec[: len(vec) - h]
-            return real(self, vec, seed=seed, rev=rev)
-        monkeypatch.setattr(port_runtime.FheRuntime, "encrypt_vector", half)
+    def half(ctx, mesh, docs, q, d, shard, slots, n_docs, top_k=5):
+        cut = [x[:, : x.shape[1] // 2 // 4 * 4] for x in docs]
+        return real(ctx, mesh, cut, q, d, shard, slots, n_docs, top_k=top_k)
+    monkeypatch.setattr(multihost, "search_host_shard", half)
 
 
 FAULTS = {"answer_altered": _answer_altered, "state_unchanged": _state_unchanged,
@@ -137,8 +113,7 @@ FAULTS = {"answer_altered": _answer_altered, "state_unchanged": _state_unchanged
 # The faults each cell can have: a compare has no batch to halve, and no
 # cell has an exchange between cards.
 CAN_HAVE = {"search-100k": ("answer_altered", "state_unchanged", "half_left_out"),
-            "compare-ring16384": ("answer_altered", "state_unchanged"),
-            "ingest-pairwise4096": ("answer_altered", "state_unchanged", "half_left_out")}
+            "compare-ring16384": ("answer_altered", "state_unchanged")}
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in CAN_HAVE[c]])
@@ -155,6 +130,21 @@ def test_command_refuses_without_a_card():
                           "--seed", "1", "--seconds", "1", "--trace", "0"],
                          capture_output=True, text=True, cwd=str(ROOT), timeout=300)
     assert out.returncode != 0 and out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("visible,names", [(2, "AAAA"), (4, "AABA")])
+def test_command_refuses_too_few_or_unlike_cards(visible, names, monkeypatch, capsys):
+    """A four-card cell with two cards visible, or with one card of another
+    name among its four: no result, and another exit code than 0."""
+    man = harness.manifest()
+    man["workloads"].append(dict(man["workloads"][0], name="four-cards", chips=4))
+    monkeypatch.setattr(harness, "manifest", lambda: man)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: names[d.index])
+    assert run.main(["--workload", "four-cards", "--seed", "1", "--seconds", "1"]) != 0
+    out = capsys.readouterr()
+    assert out.out == "" and "four-cards" in out.err
 
 
 @pytest.mark.card

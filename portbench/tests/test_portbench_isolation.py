@@ -51,7 +51,7 @@ import json, sys, torch
 sys.path.insert(0, {str(ROOT)!r})
 sys.path.insert(0, {str(BENCH / 'tests')!r})
 from small import run_small
-for cell in ("search-100k", "compare-ring16384", "ingest-pairwise4096"):
+for cell in ("search-100k", "compare-ring16384"):
     assert run_small(cell, trace=True)["correct"], cell
 from portbench import harness
 print(json.dumps(sorted({{m.split('.')[0] for m in sys.modules}})))

@@ -11,7 +11,7 @@ Seeds of any size are taken (`np.random.SeedSequence`).
 from __future__ import annotations
 
 import hashlib
-from typing import Callable, List, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -41,36 +41,6 @@ def quantized_unit(gen: torch.Generator, shape: Sequence[int], scale: float,
     v = torch.randn(tuple(shape), generator=gen, dtype=torch.float64, device=device)
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return torch.round(v * scale).to(torch.int32)
-
-
-def vocabulary(seed: int, size: int) -> List[str]:
-    """`size` distinct lower-case words of 3-9 letters, in a seeded order."""
-    rng = np.random.default_rng(seed)
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    vocab = set()
-    while len(vocab) < size:
-        vocab.add("".join(rng.choice(letters, int(rng.integers(3, 10)))))
-    return [str(w) for w in rng.permutation(sorted(vocab))]
-
-
-def text_sampler(vocab: List[str], zipf_s: float, min_words: int,
-                 max_words: int) -> Callable[[np.random.Generator, int], List[str]]:
-    """sample(rng, n): n texts of min..max words drawn by a Zipf law of
-    exponent `zipf_s` over `vocab` (rank 1 the first word)."""
-    p = 1.0 / np.arange(1, len(vocab) + 1) ** zipf_s
-    cdf = np.cumsum(p / p.sum())
-    words = np.array(vocab)
-
-    def sample(rng: np.random.Generator, n: int) -> List[str]:
-        lens = rng.integers(min_words, max_words + 1, size=n)
-        picks = np.searchsorted(cdf, rng.random(int(lens.sum())), side="right")
-        picks = np.minimum(picks, len(vocab) - 1)
-        out, at = [], 0
-        for k in lens:
-            out.append(" ".join(words[picks[at: at + k]]))
-            at += k
-        return out
-    return sample
 
 
 def pairs(rng: np.random.Generator, pool: int, count: int) -> np.ndarray:
