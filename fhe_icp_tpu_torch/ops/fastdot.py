@@ -20,6 +20,14 @@ then one integer matrix-vector product per limb, evaluated exactly:
 
 The layouts are the JAX package's, so digits compare bit for bit: a
 `DocOperand` holds (L, 4, B, 2N) int8, a `QueryOperand` (L, 4, 2N).
+
+`scores` is `digit_products` then `fold_decode`; a sharded search launches
+every shard's product before any fold.  Inside a
+`utils.profiling.recording()`, `make_query_operand` records the span
+`fastdot.query_operand`, `scores` the span `fastdot.score` around
+`digit_products`' `fastdot.product` and `fold_decode`'s
+`fastdot.fold_decode`; `digit_products` adds the documents it scored to the
+counter `fastdot.docs` and the digit bytes it read to `fastdot.digit_bytes`.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from .context import CryptoContext
 from .encoding import encode_rev
 from .modmath import add_mod, i64, mont_mul, u32
 from .ntt import ntt_fwd
+from ..utils.profiling import count, span
 
 N_DIGITS = 4
 
@@ -96,13 +105,15 @@ def make_query_operand(ctx: CryptoContext, sk: SecretKey, q_int: torch.Tensor,
     vs = v . s_ntt
     """
     l = level
-    p, pinv = ctx.lp(l), ctx.lpinv(l)
-    q_res = centered_residues(ctx, encode_rev(torch.as_tensor(q_int).to(ctx.device), ctx.n), l)
-    q_ntt = ntt_fwd(ctx.plan, q_res)                                 # (L, N)
-    v = mont_mul(q_ntt, coeff_weights(ctx, d - 1, l), p, pinv)       # q.w, normal domain
-    vs = mont_mul(v, sk.s_ntt_mont[:l], p, pinv)                     # q.w.s
-    dig = balanced_digits(center_residues(torch.cat([v, vs], dim=-1), p))   # (L, 2N, 4)
-    return QueryOperand(dig.permute(0, 2, 1).contiguous(), l, d)
+    with span("fastdot.query_operand"):
+        p, pinv = ctx.lp(l), ctx.lpinv(l)
+        q_res = centered_residues(ctx, encode_rev(torch.as_tensor(q_int).to(ctx.device), ctx.n),
+                                  l)
+        q_ntt = ntt_fwd(ctx.plan, q_res)                             # (L, N)
+        v = mont_mul(q_ntt, coeff_weights(ctx, d - 1, l), p, pinv)   # q.w, normal domain
+        vs = mont_mul(v, sk.s_ntt_mont[:l], p, pinv)                 # q.w.s
+        dig = balanced_digits(center_residues(torch.cat([v, vs], dim=-1), p))   # (L, 2N, 4)
+        return QueryOperand(dig.permute(0, 2, 1).contiguous(), l, d)
 
 
 def fold_digit_products(ctx: CryptoContext, part: torch.Tensor, l: int,
@@ -137,17 +148,34 @@ def fold_digit_products(ctx: CryptoContext, part: torch.Tensor, l: int,
 def scores(ctx: CryptoContext, docs: DocOperand, query: QueryOperand,
            pt_corr: int = 1) -> torch.Tensor:
     """(B,) int32 exact dot-product scores of every document against the query."""
+    with span("fastdot.score"):
+        return fold_decode(ctx, digit_products(docs, query), docs.digits.shape[-1], pt_corr)
+
+
+def digit_products(docs: DocOperand, query: QueryOperand) -> torch.Tensor:
+    """(L, 4, B, 4) int32 digit-pair partials [limb, doc digit, doc, query
+    digit]: one int8 product a limb contracting 2N, exact."""
     from .pack_cuda import int_mm       # pack_cuda imports this module
     l = docs.level
     if query.level != l:
         raise ValueError(f"query at level {query.level}, documents at {l}")
     a = docs.digits                                                  # (L, 4, B, 2N)
     la, b = a.shape[0], a.shape[2]
-    # One int8 product a limb: contract 2N -> (L, 4B, 4) int32, exact.
-    part = int_mm(a.reshape(la, N_DIGITS * b, -1), query.digits.transpose(1, 2))
-    part = part.reshape(la, N_DIGITS, b, N_DIGITS)                   # (L, i, B, j)
-    acc = fold_digit_products(ctx, part, l, a.shape[-1])             # (L, B)
-    return rns_decode_centered(ctx, acc.T[..., None], l, pt_corr)[..., 0]
+    count("fastdot.docs", b)
+    count("fastdot.digit_bytes", a.numel())
+    with span("fastdot.product"):
+        part = int_mm(a.reshape(la, N_DIGITS * b, -1), query.digits.transpose(1, 2))
+        return part.reshape(la, N_DIGITS, b, N_DIGITS)
+
+
+def fold_decode(ctx: CryptoContext, part: torch.Tensor, k_len: int,
+                pt_corr: int = 1) -> torch.Tensor:
+    """`digit_products`' partials over a contraction of k_len -> (B,) int32
+    scores: the digit fold mod p, then the exact RNS decode."""
+    l = part.shape[0]
+    with span("fastdot.fold_decode"):
+        acc = fold_digit_products(ctx, part, l, k_len)              # (L, B)
+        return rns_decode_centered(ctx, acc.T[..., None], l, pt_corr)[..., 0]
 
 
 def _shift_consts(ctx: CryptoContext, l: int) -> np.ndarray:

@@ -92,6 +92,14 @@ def make_sharded_fastdot_search(ctx: CryptoContext, mesh: Mesh, top_k: int = 5,
     (L, 4, 2N) QueryOperand digits, copied to every card.  Each shard scores
     its documents on its own card; the top-k runs on the gathered score
     vector, as in the JAX package.  Results lie on the mesh's first device.
+
+    Every shard's int8 product is launched before any shard's fold and
+    decode: the fold's launches take the host milliseconds a shard, which
+    would hold each next card's product back.  Nothing in the step waits
+    for a card, so the cards' products run at once.
+    Spans: `fastdot.score` around every shard's `fastdot.product`, then
+    every shard's `fastdot.fold_decode`; `fastdot.gather`, the copies of
+    the scores to the first device; `fastdot.topk`.
     """
     n_dp = mesh.shape[DP_AXIS]
     level = ctx.n_limbs
@@ -100,14 +108,17 @@ def make_sharded_fastdot_search(ctx: CryptoContext, mesh: Mesh, top_k: int = 5,
 
     def step(doc_shards: Sequence[torch.Tensor], query_digits: torch.Tensor):
         queries = {dev: query_digits.to(dev) for dev in ctxs}
-        parts = []
-        for i in range(n_dp):
-            digits = doc_shards[mesh.index({DP_AXIS: i})]
-            q = fastdot.QueryOperand(queries[digits.device], level, 0)
-            parts.append(fastdot.scores(ctxs[digits.device], fastdot.DocOperand(digits, level),
-                                        q, pt_corr).to(out_dev))
-        scores = torch.cat(parts)
-        vals, idx = torch.topk(scores, min(top_k, scores.shape[0]))
+        docs = [fastdot.DocOperand(doc_shards[mesh.index({DP_AXIS: i})], level)
+                for i in range(n_dp)]
+        with span("fastdot.score"):
+            parts = [fastdot.digit_products(
+                d, fastdot.QueryOperand(queries[d.digits.device], level, 0)) for d in docs]
+            parts = [fastdot.fold_decode(ctxs[d.digits.device], part, d.digits.shape[-1], pt_corr)
+                     for d, part in zip(docs, parts)]
+        with span("fastdot.gather"):
+            scores = torch.cat([p.to(out_dev) for p in parts])
+        with span("fastdot.topk"):
+            vals, idx = torch.topk(scores, min(top_k, scores.shape[0]))
         return scores, vals, idx
 
     return step
