@@ -106,15 +106,19 @@ Phases (any failure raises and the exit code is not 0):
    row) and the store's re-key, by device time with the key in L2 and
    after a 100 MB write.
 8. The rest of the package (`rest_of_package`), after phase 7 and before
-   phase 6's times; launch counts are zeroed before (a)-(e), with the
-   oracles' and timings' launches left out: K2 must have risen in this
-   process, and K1 in each worker of (d).  (a) Phase 3's 65,536 documents
+   phase 6's times.  First the fastdot product's kernel (`csrc/fastdot.cu`)
+   bit-exact against its plain version at a ragged batch at pairwise-4096
+   and at ring-16384's 2N, and with every digit -128.  Launch counts are
+   zeroed before (a)-(e), with the oracles' and timings' launches left
+   out: K2 and the fastdot product must have risen in this process, and K1
+   in each worker of (d).  (a) Phase 3's 65,536 documents
    encrypted again as per-document ciphertexts (its keys and seeds) into a 4.0 GiB fastdot
    `DocOperand`; 8 queries through `make_query_operand` and `scores`, every
    score == docs @ query == phase 3's packed scores (K1), every top-10 the
-   oracle's; the query latency beside K1's packed query, the int8 product
-   (`pack_cuda.int_mm`, `torch._int_mm` a limb) beside its byte bound; then
-   the same operand on 8 dp shards (`make_sharded_fastdot_search`).  (b)
+   oracle's, one fastdot product launch a query; the query latency beside
+   K1's packed query, the int8 product beside its byte bound; then the
+   same operand on 8 dp shards (`make_sharded_fastdot_search`), one launch
+   a shard a query.  (b)
    Fastdot at ring-16384 (12 limbs, 2N = 32768), 256 documents, exact, and
    the digit fold on +-2^29 partials equal to exact integers.  (c)
    `make_pipelined_scores` on a 2-shard pp mesh over phase 3's packed
@@ -128,7 +132,12 @@ Phases (any failure raises and the exit code is not 0):
    pairwise-4096 on 256 polynomials bit-equal to K2's forward after the
    bit reversal, its time against K2's.  (f) phase 3's query and K2 at
    16,384 rows timed by `utils/profiling.measure_ondevice_loop` beside
-   CUDA events around one call.
+   CUDA events around one call.  (g) The fastdot product at a shard of the
+   four-card cell (1,048,576 documents, 64 GiB, or as many multiples of
+   65,536 as fit), exact against `torch._int_mm`: CUDA events and device
+   time per call beside its byte bound, `torch._int_mm` a limb (the
+   library's yardstick) and the plain version on 8,192 documents (the
+   JSON row).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`.
@@ -217,6 +226,8 @@ KERNELS = {
     "all_to_all": ("fhe_icp_tpu_torch/csrc/all_to_all.cu", "fhe_icp_tpu/parallel/ici.py:28"),
     "keyswitch_inner": ("fhe_icp_tpu_torch/csrc/keyswitch.cu",
                         "none: XLA fused fhe_icp_tpu/ops/arith.py's digit loop"),
+    "fastdot_product": ("fhe_icp_tpu_torch/csrc/fastdot.cu",
+                        "none: XLA's int8 dot_general in fhe_icp_tpu/ops/fastdot.py"),
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pack_score")
@@ -319,6 +330,9 @@ def device_and_build() -> str:
     ks = {k: v for k, v in report.items() if k.startswith("keyswitch_inner_kernel")}
     check(len(ks) == 3 and all(st == 0 for _, st in ks.values()),
           f"keyswitch instances with a stack frame, or missing from the build log: {ks}")
+    fd = {k: v for k, v in report.items() if k.startswith("fastdot_product_kernel")}
+    check(len(fd) == 1 and all(st == 0 for _, st in fd.values()),
+          f"the fastdot product with a stack frame, or missing from the build log: {fd}")
     print("kernels:", " ".join(KERNELS))
     return smi
 
@@ -334,8 +348,9 @@ def ptxas_report(log: str) -> dict:
     """{kernel: (registers, stack bytes)} from nvcc's -Xptxas -v output.
 
     K2's templates are named ntt_block_kernel<fwd, twist, C> and
-    ntt_warp_kernel<fwd, twist, E>, the keyswitch's keyswitch_inner_kernel<BT>;
-    other kernels keep ptxas's name.
+    ntt_warp_kernel<fwd, twist, E>, the keyswitch's keyswitch_inner_kernel<BT>,
+    the fastdot product's fastdot_product_kernel<stages>; other kernels keep
+    ptxas's name.
     """
     out, name = {}, None
     for line in log.splitlines():
@@ -345,7 +360,7 @@ def ptxas_report(log: str) -> dict:
             t = re.search(r"(ntt_(?:block|warp)_kernel)ILb(\d)ELb(\d)ELi(\d+)E", name)
             if t:
                 name = f"{t.group(1)}<{t.group(2)}, {t.group(3)}, {t.group(4)}>"
-            t = re.search(r"(keyswitch_inner_kernel)ILi(\d+)E", name)
+            t = re.search(r"(keyswitch_inner_kernel|fastdot_product_kernel)ILi(\d+)E", name)
             if t:
                 name = f"{t.group(1)}<{t.group(2)}>"
             continue
@@ -1523,9 +1538,16 @@ RING_FASTDOT_DOCS = 256
 MXU_BATCH, MXU_N1 = 256, 128       # the four-step NTT's batch and N1 (JAX's config 6)
 WORKERS, WORKER_TIMEOUT_S = 2, 300
 LOOP_K = (4, 20)                   # measure_ondevice_loop's short and long runs
-# K2 in this process (encryption, the query operands); K1 only in the
-# workers' search: this process launches K1 only for its oracles and times.
-REST_PATH_KERNELS = ("ntt_fwd",)
+# The fastdot product at a shard of the four-card cell's store (pairwise-4096);
+# a ragged batch at each fastdot 2N (pairwise-4096, ring-16384) for its check.
+FASTDOT_SHARD_DOCS, FASTDOT_PLAIN_DOCS = 1 << 20, 8192
+FASTDOT_RAGGED = ((PRESET, 1000), (RING, 77))
+# One fastdot product launch a scored shard.
+FASTDOT_LAUNCHES = 1
+# K2 in this process (encryption, the query operands), the fastdot product
+# in its scores; K1 only in the workers' search: this process launches K1
+# only for its oracles and times.
+REST_PATH_KERNELS = ("ntt_fwd", "fastdot_product")
 WORKER_KERNELS = ("pack_score",)
 
 
@@ -1537,6 +1559,7 @@ def rest_of_package(rng, store: dict, shard_store: dict) -> dict:
           f"ciphertexts and at {RING}, the pipeline, {WORKERS} worker processes, the "
           f"four-step int8 NTT")
     torch.cuda.synchronize()
+    fastdot_err = fastdot_vs_plain()
     kernels.launches.clear()
     t_start = time.perf_counter()
     packed = fastdot_store(store)
@@ -1553,10 +1576,91 @@ def rest_of_package(rng, store: dict, shard_store: dict) -> dict:
     print(f"  launches in phase 8: this process {launches}, its oracles and timings left "
           f"out; the workers {worker_launches}; {time.perf_counter() - t_start:.2f} s")
     loop_times(rng, store, packed)
+    del packed
+    torch.cuda.empty_cache()
+    fastdot_row = fastdot_product_timing(store["rt"].ctx)
+    fastdot_row["max_abs_err"] = fastdot_err
     print(f"  phase 8, its times included: {time.perf_counter() - t_start:.2f} s")
     for name, n in worker_launches.items():
         launches[name] = launches.get(name, 0) + n
-    return dict(launches=launches)
+    return dict(launches=launches, fastdot_row=fastdot_row)
+
+
+def fastdot_vs_plain() -> int:
+    """The fastdot product's kernel against its plain version on random digits
+    at a ragged batch at pairwise-4096 (2N = 8192) and at ring-16384 (2N =
+    32768, 12 limbs), and with every digit -128 at ring-16384 (each partial
+    128*128*32768 = 2^29).  Returns the largest error (0)."""
+    from fhe_icp_tpu_torch.ops import fastdot_cuda
+    cases = []
+    for preset, b in FASTDOT_RAGGED:
+        p = get_params(preset)
+        cases.append((f"{preset} (L={p.n_limbs}, 2N={2 * p.n}), B={b}",
+                      torch.randint(-128, 128, (p.n_limbs, 4, b, 2 * p.n), dtype=torch.int8,
+                                    device=DEVICE),
+                      torch.randint(-128, 128, (p.n_limbs, 4, 2 * p.n), dtype=torch.int8,
+                                    device=DEVICE)))
+    p = get_params(RING)
+    cases.append((f"{RING}, B=33, every digit -128",
+                  torch.full((p.n_limbs, 4, 33, 2 * p.n), -128, dtype=torch.int8, device=DEVICE),
+                  torch.full((p.n_limbs, 4, 2 * p.n), -128, dtype=torch.int8, device=DEVICE)))
+    err = 0
+    with uncounted():
+        for what, a, q in cases:
+            e = max_abs_err(fastdot_cuda.digit_products(a, q),
+                            fastdot_cuda.digit_products_ref(a, q))
+            check(e == 0, f"fastdot_product at {what}: max abs err {e}")
+            err = max(err, e)
+    print(f"  fastdot_product against its plain version at {'; '.join(c[0] for c in cases)}: "
+          "bit-exact")
+    return err
+
+
+def fastdot_product_timing(ctx) -> dict:
+    """The fastdot product at a shard of the four-card cell's store (1,048,576
+    documents at pairwise-4096, 64 GiB), or the most multiples of 65,536
+    documents that fit beside phase 8's store, on random digits: checked
+    against cuBLASLt's exact int32 GEMM on the timed digits, then CUDA events
+    around the wrapper and device time per call beside the bound (every
+    digit read once, every partial written once), cuBLASLt's GEMM
+    (`torch._int_mm` a limb, the query padded to 8 columns, as
+    `pack_cuda.int_mm` runs it) and the plain version on the first
+    FASTDOT_PLAIN_DOCS documents."""
+    from fhe_icp_tpu_torch.ops import fastdot_cuda
+    l, k = ctx.n_limbs, 2 * ctx.n
+    torch.cuda.synchronize()
+    spare = 6 * 2 ** 30            # the plain version's float64 operands and the outputs
+    fits = (torch.cuda.mem_get_info()[0] - spare) // (l * 4 * k) // 65536 * 65536
+    b = min(FASTDOT_SHARD_DOCS, fits)
+    check(b >= 65536, f"no room for 65,536 fastdot documents ({fits} fit)")
+    a = torch.randint(-128, 128, (l, 4, b, k), dtype=torch.int8, device=DEVICE)
+    q = torch.randint(-128, 128, (l, 4, k), dtype=torch.int8, device=DEVICE)
+    qpad = torch.zeros((l, k, 8), dtype=torch.int8, device=DEVICE)
+    qpad[:, :, :4] = q.transpose(1, 2)
+    rows = a.view(l, 4 * b, k)
+
+    def kern():
+        return fastdot_cuda.digit_products(a, q)
+
+    def lib():
+        return [torch._int_mm(rows[i], qpad[i]) for i in range(l)]
+    with uncounted():
+        e = max_abs_err(kern(), torch.stack(lib())[:, :, :4].reshape(l, 4, b, 4))
+    check(e == 0, f"fastdot_product at {b} documents against torch._int_mm: max abs err {e}")
+    ms = cuda_ms(kern)
+    dev = device_us_per_call(kern, "fastdot_product", calls=5)
+    lib_ms = cuda_ms(lib, reps=3, warmup=1)
+    head = a[:, :, :FASTDOT_PLAIN_DOCS].contiguous()
+    plain = cuda_ms(lambda: fastdot_cuda.digit_products_ref(head, q), reps=3, warmup=1)
+    byts = a.numel() + q.numel() + l * 4 * b * 4 * 4
+    bound_ms, kind, why = bound(byts, 2 * a.numel() * 4, peaks().int8_tops * 1e12)
+    print(f"  fastdot_product at {b} documents (L={l}, 2N={k}, {a.numel() / 2 ** 30:.1f} GiB): "
+          f"{ms:.4f} ms (CUDA events around the wrapper; device time per call {fmt_us(dev)}), "
+          f"{100 * bound_ms / ms:.1f} % of the bound {bound_ms:.4f} ms ({why}; "
+          f"{byts / 1e9:.3f} GB); exact against torch._int_mm; {l} x torch._int_mm "
+          f"{lib_ms:.4f} ms; plain at its first {FASTDOT_PLAIN_DOCS} documents {plain:.3f} ms")
+    return dict(name="fastdot_product", ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
+                library_ms=lib_ms)
 
 
 def fastdot_store(store: dict):
@@ -1609,25 +1713,24 @@ def fastdot_store(store: dict):
           f"median of {len(lat) - 1} after the first) {statistics.median(lat[1:]) * 1e3:.3f} ms, "
           f"first {lat[0] * 1e3:.3f} ms; K1's packed query on the same documents "
           f"{statistics.median(lat_k1[1:]) * 1e3:.3f} ms")
-    a2 = digits.reshape(level, fastdot.N_DIGITS * n, -1)
-    v2 = q_op.digits.transpose(1, 2)
-    vpad = torch.zeros((level, 2 * ctx.n, 8), dtype=torch.int8, device=DEVICE)
-    vpad[:, :, :fastdot.N_DIGITS] = v2
-    mm = cuda_ms(lambda: pack_cuda.int_mm(a2, v2))
-    lib = cuda_ms(lambda: [torch._int_mm(a2[i], vpad[i]) for i in range(level)])
-    byts = a2.numel() + v2.numel() + level * a2.shape[1] * fastdot.N_DIGITS * 4
-    bound_ms, _, why = bound(byts, 2 * a2.numel() * fastdot.N_DIGITS, peaks().int8_tops * 1e12)
+    check(kernels.launches["fastdot_product"] == len(queries) * FASTDOT_LAUNCHES,
+          f"fastdot_product launched {kernels.launches['fastdot_product']} times for "
+          f"{len(queries)} scored queries")
+    mm = cuda_ms(lambda: fastdot.digit_products(dop, q_op))
+    byts = digits.numel() + q_op.digits.numel() + level * fastdot.N_DIGITS * n * 4 * 4
+    bound_ms, _, why = bound(byts, 2 * digits.numel() * fastdot.N_DIGITS,
+                             peaks().int8_tops * 1e12)
     fd = cuda_ms(lambda: fastdot.scores(ctx, dop, q_op))
     k1 = cuda_ms(lambda: pack.packed_scores(ctx, packed, pq, ct.pt_corr))
-    print(f"  (a) int8 product ({level} x ({a2.shape[1]}, {a2.shape[2]}) x ({a2.shape[2]}, 4 "
-          f"padded to 8)), CUDA events: int_mm {mm:.4f} ms, {level} x torch._int_mm alone "
-          f"{lib:.4f} ms, bound {bound_ms:.4f} ms ({why}; {byts / 1e9:.3f} GB); "
-          f"fastdot.scores {fd:.4f} ms; K1's packed_scores on the same documents {k1:.4f} ms")
+    print(f"  (a) int8 product ({level} x ({fastdot.N_DIGITS * n}, {2 * ctx.n}) x "
+          f"({2 * ctx.n}, 4)), CUDA events: fastdot_product {mm:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({why}; {byts / 1e9:.3f} GB); fastdot.scores {fd:.4f} ms; K1's packed_scores on "
+          f"the same documents {k1:.4f} ms; one fastdot_product launch a query")
     device_view(lambda i: fastdot.scores(ctx, dop, q_op), 3, "fastdot.scores", top=5)
 
     mesh = make_mesh(N_SHARDS, (N_SHARDS, 1), DEVICE)
     shards = shard(mesh, digits, DOC_OPERAND_SPEC)
-    del dop, digits, a2
+    del dop, digits
     step = make_sharded_fastdot_search(ctx, mesh, top_k=TOP_K)
     lat = []
     for qi, q in enumerate(queries):
@@ -1643,9 +1746,14 @@ def fastdot_store(store: dict):
         check(sorted(vals.tolist()) == sorted(np.sort(want)[-TOP_K:].tolist())
               and (want[idx] == vals).all(),
               f"sharded fastdot query {qi}: top-{TOP_K} differs from the oracle's")
+    check(kernels.launches["fastdot_product"]
+          == len(queries) * (1 + N_SHARDS) * FASTDOT_LAUNCHES,
+          f"fastdot_product launched {kernels.launches['fastdot_product']} times, not one a "
+          f"shard a query")
     print(f"  (a) the same documents on {N_SHARDS} dp shards (make_sharded_fastdot_search): "
-          f"{len(queries)} queries exact; latency {statistics.median(lat[1:]) * 1e3:.3f} ms "
-          f"(host clock, median of {len(lat) - 1} after the first)")
+          f"{len(queries)} queries exact, one fastdot_product launch a shard; latency "
+          f"{statistics.median(lat[1:]) * 1e3:.3f} ms (host clock, median of {len(lat) - 1} "
+          f"after the first)")
     return packed
 
 
@@ -1891,7 +1999,8 @@ def bound(byts: float, ops: float, ops_per_s: float) -> tuple:
     return max(t_b, t_o), kind, f"set by {kind}: bytes {t_b:.4f} ms, operations {t_o:.4f} ms"
 
 
-def timings(rng, errs: dict, launches: dict, smi: str) -> list:
+def timings(rng, errs: dict, launches: dict, smi: str, measured: list) -> list:
+    """Each kernel's JSON row; `measured` holds rows timed in earlier phases."""
     phase(f"times on {smi} (CUDA events, median of repeats)")
     out = k2_timings(rng)
     slots = pack.slots_per_ct(get_params(PRESET).n, DIM)
@@ -1900,6 +2009,7 @@ def timings(rng, errs: dict, launches: dict, smi: str) -> list:
     pack_score_timing(-(-N_DOCS_SHARDED // slots // PAD_GROUPS) * PAD_GROUPS // N_SHARDS)
     out.append(all_to_all_timings())
     out.append(keyswitch_timings(rng))
+    out += measured
     for row in out:
         src, rep = KERNELS[row["name"]]
         row.update(route="cuda", source=src, replaces=rep,
@@ -2175,7 +2285,9 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + app_run["launches"].get(k, 0)
     for k in REST_PATH_KERNELS + WORKER_KERNELS + ("ntt_inv",):
         launches[k] = launches.get(k, 0) + rest_run["launches"].get(k, 0)
-    rows = timings(rng, errs, launches, smi)
+    fastdot_row = rest_run["fastdot_row"]
+    errs["fastdot_product"] = fastdot_row.pop("max_abs_err")
+    rows = timings(rng, errs, launches, smi, [fastdot_row])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -13,13 +13,14 @@ also transposes the query digits there first) and returns
 `cudaGetLastError()`; `check` raises on anything but 0, so a refused
 launch never passes silently.  Wrappers launch inside `launch_on(device)`,
 which makes the tensor's card current.  Nothing links against `libcuda`:
-K1's TMA descriptors are encoded by a driver function that
-`pack_score.cu` fetches through the runtime.
+the TMA descriptors of K1 and of the fastdot product are encoded by a
+driver function that `pack_score.cu` and `fastdot.cu` fetch through the
+runtime.
 
 `launches` counts, per kernel, the launches made by the wrappers in
-`ops/ntt_cuda.py`, `ops/pack_cuda.py`, `ops/keyswitch_cuda.py` and
-`parallel/ici.py`; it lets a caller show that a run went through the
-kernels.
+`ops/ntt_cuda.py`, `ops/pack_cuda.py`, `ops/keyswitch_cuda.py`,
+`ops/fastdot_cuda.py` and `parallel/ici.py`; it lets a caller show that a
+run went through the kernels.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "fhe_all_to_all": [_P, _P, _I, _P, _I, _L, _P],
     "fhe_enable_peer_access": [_I, _I],
     "fhe_keyswitch_inner": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fhe_fastdot_product": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 launches: collections.Counter = collections.Counter()

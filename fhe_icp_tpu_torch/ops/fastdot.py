@@ -13,7 +13,7 @@ then one integer matrix-vector product per limb, evaluated exactly:
   digits in [-128, 127] (int8);
 * an int8 x int8 -> int32 product contracts the 2N axis: every digit-pair
   partial is below 128*128*2N < 2^31, so the int32 sums are exact
-  (`pack_cuda.int_mm`: `torch._int_mm` on the card);
+  (`fastdot_cuda.digit_products`: the kernel `csrc/fastdot.cu` on the card);
 * the partials fold back mod p with Montgomery multiplies by 2^{8s}
   (`_shift_consts`), then the (B, L) residues go through the exact RNS
   decode.
@@ -155,17 +155,15 @@ def scores(ctx: CryptoContext, docs: DocOperand, query: QueryOperand,
 def digit_products(docs: DocOperand, query: QueryOperand) -> torch.Tensor:
     """(L, 4, B, 4) int32 digit-pair partials [limb, doc digit, doc, query
     digit]: one int8 product a limb contracting 2N, exact."""
-    from .pack_cuda import int_mm       # pack_cuda imports this module
+    from . import fastdot_cuda          # fastdot_cuda imports this module
     l = docs.level
     if query.level != l:
         raise ValueError(f"query at level {query.level}, documents at {l}")
     a = docs.digits                                                  # (L, 4, B, 2N)
-    la, b = a.shape[0], a.shape[2]
-    count("fastdot.docs", b)
+    count("fastdot.docs", a.shape[2])
     count("fastdot.digit_bytes", a.numel())
     with span("fastdot.product"):
-        part = int_mm(a.reshape(la, N_DIGITS * b, -1), query.digits.transpose(1, 2))
-        return part.reshape(la, N_DIGITS, b, N_DIGITS)
+        return fastdot_cuda.digit_products(a, query.digits)
 
 
 def fold_decode(ctx: CryptoContext, part: torch.Tensor, k_len: int,

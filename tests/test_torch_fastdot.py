@@ -17,7 +17,7 @@ import torch
 from fhe_icp_tpu.ops import fastdot as jfd
 from fhe_icp_tpu.ops.runtime import FheRuntime as JaxRuntime
 from fhe_icp_tpu_torch import interop
-from fhe_icp_tpu_torch.ops import fastdot, pack_cuda
+from fhe_icp_tpu_torch.ops import fastdot, fastdot_cuda, pack_cuda
 from fhe_icp_tpu_torch.ops.context import CryptoContext
 from fhe_icp_tpu_torch.ops.params import get_params
 
@@ -123,6 +123,80 @@ def test_int_mm_plain_version_on_the_cpu():
     _eq(pack_cuda.int_mm(a, v).numpy(), want)
     with pytest.raises(ValueError):
         pack_cuda.int_mm(a.to("meta"), v.to("meta"))
+
+
+# (L, B, 2N, digits): B off every multiple of 32 and 128, a shard's 2N = 8192
+# and ring-16384's 32768, and every digit at -128, where each partial is
+# 128*128*2N (2^29 at 32768).
+DIGIT_CASES = {
+    "ragged-b": (2, 37, 8192, "random"),
+    "b-127": (2, 127, 1024, "random"),
+    "b-129": (3, 129, 256, "random"),
+    "ring-2n": (12, 3, 32768, "random"),
+    "all-minus-128-8192": (2, 33, 8192, "-128"),
+    "all-minus-128-32768": (12, 5, 32768, "-128"),
+}
+
+
+def _digit_planes(l, b, k, kind, seed=0):
+    if kind == "-128":
+        return (torch.full((l, 4, b, k), -128, dtype=torch.int8),
+                torch.full((l, 4, k), -128, dtype=torch.int8))
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(-128, 128, size=(l, 4, b, k)).astype(np.int8)),
+            torch.from_numpy(rng.integers(-128, 128, size=(l, 4, k)).astype(np.int8)))
+
+
+@pytest.mark.parametrize("case", sorted(DIGIT_CASES))
+def test_digit_products_equal_the_int64_product(case):
+    """The plain version, the wrapper on the CPU and `fastdot.digit_products`
+    give the int64 product of the same digits, as (L, 4, B, 4) int32."""
+    l, b, k, kind = DIGIT_CASES[case]
+    a, q = _digit_planes(l, b, k, kind)
+    want = np.einsum("libk,ljk->libj", a.numpy().astype(np.int64), q.numpy().astype(np.int64))
+    got = fastdot_cuda.digit_products_ref(a, q)
+    assert got.dtype == torch.int32 and got.shape == (l, 4, b, 4)
+    _eq(got.numpy(), want)
+    _eq(fastdot_cuda.digit_products(a, q).numpy(), want)
+    _eq(fastdot.digit_products(fastdot.DocOperand(a, l), fastdot.QueryOperand(q, l, 128)).numpy(),
+        want)
+    if kind == "-128":
+        assert (want == 128 * 128 * k).all()
+
+
+@pytest.mark.parametrize("case", ["ragged-b", "b-127"])
+def test_scores_of_random_digits_match_jax(case):
+    """`fastdot.scores` on the same digit operands as the JAX package's
+    `scores`, with B off the kernel's tile sizes: equal."""
+    jrt, tctx, _ = _setup("test-512")
+    l, b, _, _ = DIGIT_CASES[case]
+    a, q = _digit_planes(l, b, 2 * tctx.n, "random", seed=len(case))
+    got = fastdot.scores(tctx, fastdot.DocOperand(a, l), fastdot.QueryOperand(q, l, 128))
+    want = jfd.scores(jrt.ctx, jfd.DocOperand(jnp.asarray(a.numpy()), l),
+                      jfd.QueryOperand(jnp.asarray(q.numpy()), l, 128))
+    _eq(got, want)
+
+
+def _refused(a, q):
+    return {
+        "dtype": (a.to(torch.int16), q),
+        "query-dtype": (a, q.to(torch.int32)),
+        "no-chain-2n": (a, q[..., :128]),
+        "no-chain-limbs": (a, q[:1]),
+        "no-chain-digits": (a[:, :3], q[:, :3]),
+        "2n-not-128": (a[..., :200], q[..., :200]),
+        "two-devices": (a, q.to("meta")),
+        "meta": (a.to("meta"), q.to("meta")),
+    }
+
+
+@pytest.mark.parametrize("case", ["dtype", "query-dtype", "no-chain-2n", "no-chain-limbs",
+                                  "no-chain-digits", "2n-not-128", "two-devices", "meta"])
+def test_digit_products_refuse(case):
+    """What the kernel does not take raises, on every device; `meta` has no kernel."""
+    a, q = _refused(*_digit_planes(2, 5, 256, "random"))[case]
+    with pytest.raises(TypeError if "dtype" in case else ValueError):
+        fastdot_cuda.digit_products(a, q)
 
 
 def test_ring_16384_scores_reuse_jax_keys():
