@@ -52,18 +52,18 @@
 // bound (cuBLASLt's GEMM 121.5 ms); 4 to 12 stages at 1 to 3 blocks an SM
 // all read within 0.6 % of each other.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "tma_sm90.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
 
 constexpr int kBlockRows = 128;            // A rows a tile: two warpgroups of 64
-constexpr int kBlockK = 128;               // K bytes a stage: one swizzled 128-byte row
+constexpr int kBlockK = fhe::kTmaBoxK;     // K bytes a stage: one swizzled 128-byte row
 constexpr int kWgmmaK = 32;                // K bytes a wgmma
 constexpr int kCols = 4;                   // the query's digit columns
 constexpr int kBN = 16;                    // the wgmma width; query rows 4..15 are zeros
@@ -73,65 +73,6 @@ constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kStageA = kBlockRows * kBlockK;
 constexpr int kStageBytes = kStageA + kBN * kBlockK;  // a multiple of 1024, as swizzling needs
 constexpr int kSmem = kStages * kStageBytes + 1024;   // + alignment
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma matrix descriptor of a K-major tile whose 128-byte rows TMA wrote with
-// the 128-byte swizzle: start address >> 4 (bits 0-13), leading byte offset
-// (unused for swizzled K-major, 1 by convention; bits 16-29), 1024 bytes
-// between 8-row groups >> 4 (bits 32-45), swizzle mode 1 = 128 B (bits 62-63).
-// Stepping K by 32 bytes inside the row adds 32 to the start address.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(int32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // ta: A as (2N, rows, L), tq: Q as (2N, 4, L), both read in 128-byte boxes.
 // out: (L, rows, 4) int32 as int2 pairs.  Tile t covers rows
@@ -144,13 +85,13 @@ fastdot_product_kernel(const __grid_constant__ CUtensorMap ta,
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[Stages];
   __shared__ __align__(8) uint64_t empty[Stages];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
+  const uint32_t base = (fhe::smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < Stages; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);
-      mbar_init(smem_u32(&empty[s]), kConsumers / 32);
+      fhe::mbar_init(fhe::smem_u32(&full[s]), 1);
+      fhe::mbar_init(fhe::smem_u32(&empty[s]), kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -164,11 +105,11 @@ fastdot_product_kernel(const __grid_constant__ CUtensorMap ta,
         const int limb = t / tiles, row0 = (t % tiles) * kBlockRows;
         for (int kt = 0; kt < k_tiles; ++kt, ++it) {
           const uint32_t s = it % Stages;
-          if (it >= Stages) mbar_wait(smem_u32(&empty[s]), (it / Stages - 1) & 1);
-          const uint32_t a_s = base + s * kStageBytes, bar = smem_u32(&full[s]);
-          mbar_expect_tx(bar, kStageBytes);
-          tma_load_3d(a_s, &ta, bar, kt * kBlockK, row0, limb);
-          tma_load_3d(a_s + kStageA, &tq, bar, kt * kBlockK, 0, limb);
+          if (it >= Stages) fhe::mbar_wait(fhe::smem_u32(&empty[s]), (it / Stages - 1) & 1);
+          const uint32_t a_s = base + s * kStageBytes, bar = fhe::smem_u32(&full[s]);
+          fhe::mbar_expect_tx(bar, kStageBytes);
+          fhe::tma_load_3d(a_s, &ta, bar, kt * kBlockK, row0, limb);
+          fhe::tma_load_3d(a_s + kStageA, &tq, bar, kt * kBlockK, 0, limb);
         }
       }
     }
@@ -189,19 +130,20 @@ fastdot_product_kernel(const __grid_constant__ CUtensorMap ta,
     for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
     for (int kt = 0; kt < k_tiles; ++kt, ++it) {
       const uint32_t s = it % Stages;
-      mbar_wait(smem_u32(&full[s]), (it / Stages) & 1);
+      fhe::mbar_wait(fhe::smem_u32(&full[s]), (it / Stages) & 1);
       __syncwarp();  // wgmma is .aligned: the warp issues it together
       const uint32_t a_s = base + s * kStageBytes + wg * 64 * kBlockK;
       const uint32_t b_s = base + s * kStageBytes + kStageA;
-      fence_regs(acc);
+      fhe::fence_regs(acc);
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < kBlockK / kWgmmaK; ++kk)
-        fhe::wgmma_s8<kBN>(acc, desc_sw128(a_s + kk * kWgmmaK), desc_sw128(b_s + kk * kWgmmaK));
+        fhe::wgmma_s8<kBN>(acc, fhe::desc_sw128(a_s + kk * kWgmmaK),
+                           fhe::desc_sw128(b_s + kk * kWgmmaK));
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_regs(acc);
-      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+      fhe::fence_regs(acc);
+      if (lane == 0) fhe::mbar_arrive(fhe::smem_u32(&empty[s]));
     }
     if (lane % 4 < kCols / 2) {
       const int r = row0 + row;
@@ -210,46 +152,6 @@ fastdot_product_kernel(const __grid_constant__ CUtensorMap ta,
       if (r + 8 < rows) o[8 * (kCols / 2)] = make_int2(acc[2], acc[3]);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetch it through the
-// runtime, so that the library links without libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (limbs, rows, k) int8 tensor, k innermost, read in (1, box_rows, 128)
-// boxes with the 128-byte swizzle; rows past the end read as zeros.
-bool encode(EncodeTiled enc, CUtensorMap* map, const void* data, int k, int rows, int limbs,
-            int box_rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(limbs)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k),
-                                 static_cast<cuuint64_t>(k) * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {kBlockK, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(data), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -268,10 +170,11 @@ extern "C" int fhe_fastdot_product(const void* a, const void* q, void* out, int 
   const long long tiles = (static_cast<long long>(rows) + kBlockRows - 1) / kBlockRows,
                   n_tiles = tiles * L;
   if (n_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  EncodeTiled enc = encoder();
+  fhe::EncodeTiled enc = fhe::encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap ta, tq;
-  if (!encode(enc, &ta, a, K, rows, L, kBlockRows) || !encode(enc, &tq, q, K, kCols, L, kBN))
+  if (!fhe::encode(enc, &ta, a, K, rows, L, kBlockRows) ||
+      !fhe::encode(enc, &tq, q, K, kCols, L, kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);

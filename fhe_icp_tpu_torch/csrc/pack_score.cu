@@ -35,19 +35,19 @@
 //   before the launch) add_mods their residues from a scratch buffer into
 //   the output.  add_mod of canonical residues is exact in any order.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "modmath.cuh"
+#include "tma_sm90.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
 
 constexpr int kBlockRows = 128;             // doc digit rows per tile: 32 whole groups
 constexpr int kBlockGroups = kBlockRows / 4;
-constexpr int kBlockK = 128;                // K bytes per stage: one swizzled 128-byte row
+constexpr int kBlockK = fhe::kTmaBoxK;      // K bytes per stage: one swizzled 128-byte row
 constexpr int kWgmmaK = 32;                 // K bytes per wgmma
 constexpr int kStages = 4;
 constexpr int kConsumers = 256;             // two warpgroups of 64 rows each
@@ -63,65 +63,6 @@ struct Layout {
   static constexpr int kStaging = kBlockRows * kPitch * 4;
   static constexpr int kBytes = (kRing > kStaging ? kRing : kStaging) + 1024;  // + alignment
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 3-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma matrix descriptor of a K-major tile whose 128-byte rows TMA wrote with
-// the 128-byte swizzle: start address >> 4 (bits 0-13), leading byte offset
-// (unused for swizzled K-major, 1 by convention; bits 16-29), 1024 bytes
-// between 8-row groups >> 4 (bits 32-45), swizzle mode 1 = 128 B (bits 62-63).
-// Stepping K by 32 bytes inside the row adds 32 to the start address.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(int32_t (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
@@ -139,7 +80,7 @@ pack_score_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   __shared__ __align__(8) uint64_t empty[kStages];
   __shared__ int is_last;
 
-  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t raw = fhe::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;     // swizzle atoms need 1024-byte alignment
   int32_t* staged = reinterpret_cast<int32_t*>(smem_raw + (base - raw));
 
@@ -156,8 +97,8 @@ pack_score_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);
-      mbar_init(smem_u32(&empty[s]), kConsumers / 32);
+      fhe::mbar_init(fhe::smem_u32(&full[s]), 1);
+      fhe::mbar_init(fhe::smem_u32(&empty[s]), kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -168,12 +109,12 @@ pack_score_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     if (lane == 0) {
       for (int it = 0; it < nk; ++it) {
         const int s = it % kStages;
-        if (it >= kStages) mbar_wait(smem_u32(&empty[s]), ((it / kStages) - 1) & 1);
+        if (it >= kStages) fhe::mbar_wait(fhe::smem_u32(&empty[s]), ((it / kStages) - 1) & 1);
         const uint32_t a_s = base + s * Lay::kStage;
-        const uint32_t bar = smem_u32(&full[s]);
-        mbar_expect_tx(bar, Lay::kStage);
-        tma_load_3d(a_s, &ta, bar, (kt0 + it) * kBlockK, tile * kBlockRows, limb);
-        tma_load_3d(a_s + Lay::kA, &tb, bar, (kt0 + it) * kBlockK, ct * BN, limb);
+        const uint32_t bar = fhe::smem_u32(&full[s]);
+        fhe::mbar_expect_tx(bar, Lay::kStage);
+        fhe::tma_load_3d(a_s, &ta, bar, (kt0 + it) * kBlockK, tile * kBlockRows, limb);
+        fhe::tma_load_3d(a_s + Lay::kA, &tb, bar, (kt0 + it) * kBlockK, ct * BN, limb);
       }
     }
     return;
@@ -186,19 +127,20 @@ pack_score_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   for (int it = 0; it < nk; ++it) {
     const int s = it % kStages;
-    mbar_wait(smem_u32(&full[s]), (it / kStages) & 1);
+    fhe::mbar_wait(fhe::smem_u32(&full[s]), (it / kStages) & 1);
     __syncwarp();   // wgmma is .aligned: the warp issues it together
     const uint32_t a_s = base + s * Lay::kStage + wg * 64 * kBlockK;
     const uint32_t b_s = base + s * Lay::kStage + Lay::kA;
-    fence_regs(acc);
+    fhe::fence_regs(acc);
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kBlockK / kWgmmaK; ++kk)
-      fhe::wgmma_s8<BN>(acc, desc_sw128(a_s + kk * kWgmmaK), desc_sw128(b_s + kk * kWgmmaK));
+      fhe::wgmma_s8<BN>(acc, fhe::desc_sw128(a_s + kk * kWgmmaK),
+                        fhe::desc_sw128(b_s + kk * kWgmmaK));
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    fence_regs(acc);
-    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+    fhe::fence_regs(acc);
+    if (lane == 0) fhe::mbar_arrive(fhe::smem_u32(&empty[s]));
   }
 
   // Stage the partials over the ring, which both warpgroups have finished reading.
@@ -304,58 +246,19 @@ pack_score_transpose_kernel(const uint32_t* __restrict__ v, uint32_t* __restrict
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetch it through the
-// runtime, so that the library links without libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (limbs, rows, k) int8 tensor, k innermost, read in (1, box_rows, 128) boxes
-// with the 128-byte swizzle; rows past the end read as zeros.
-bool encode(EncodeTiled enc, CUtensorMap* map, const void* data, int k, int rows, int limbs,
-            int box_rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(limbs)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(k),
-                                 static_cast<cuuint64_t>(k) * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {kBlockK, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(data), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BN>
 cudaError_t launch(const void* a, const void* v, const void* w, const void* tab, void* out,
                    uint8_t* vt, int* work, int L, int G, int K, int S, int splits,
                    cudaStream_t stream) {
-  EncodeTiled enc = encoder();
+  fhe::EncodeTiled enc = fhe::encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   pack_score_transpose_kernel<<<dim3(K / kBlockK, L, (4 * S + 255) / 256), 256, 0, stream>>>(
       static_cast<const uint32_t*>(v), reinterpret_cast<uint32_t*>(vt), K, 4 * S);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap ta, tb;
-  if (!encode(enc, &ta, a, K, 4 * G, L, kBlockRows) || !encode(enc, &tb, vt, K, 4 * S, L, BN))
+  if (!fhe::encode(enc, &ta, a, K, 4 * G, L, kBlockRows) ||
+      !fhe::encode(enc, &tb, vt, K, 4 * S, L, BN))
     return cudaErrorInvalidValue;
   const int smem = Layout<BN>::kBytes;
   e = cudaFuncSetAttribute(pack_score_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -14,8 +14,8 @@ also transposes the query digits there first) and returns
 launch never passes silently.  Wrappers launch inside `launch_on(device)`,
 which makes the tensor's card current.  Nothing links against `libcuda`:
 the TMA descriptors of K1 and of the fastdot product are encoded by a
-driver function that `pack_score.cu` and `fastdot.cu` fetch through the
-runtime.
+driver function that `csrc/tma_sm90.cuh`, the TMA plumbing both kernels
+include, fetches through the runtime.
 
 `launches` counts, per kernel, the launches made by the wrappers in
 `ops/ntt_cuda.py`, `ops/pack_cuda.py`, `ops/keyswitch_cuda.py`,

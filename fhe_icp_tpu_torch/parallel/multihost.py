@@ -2,9 +2,9 @@
 
 The counterpart of the JAX package's `parallel/multihost.py`.  Each
 process (host) owns a contiguous slice of the packed ciphertext groups and
-scores it on its own card with the sharded packed search (kernel K1,
-`search.make_sharded_packed_search`); across processes only each one's
-k winners travel, and the exact merge runs on the host:
+scores and ranks it on its own card with the sharded packed search (kernel
+K1, `search.make_sharded_packed_search`); only each one's k winners reach
+the host and cross processes, and the exact merge runs on the host:
 
 * `partition_groups`, `shard_slice`, `local_topk`, `merge_topk` — numpy,
   as in the JAX package;
@@ -145,17 +145,19 @@ def search_host_shard(ctx, mesh, doc_digits, query_digits, d: int, shard: HostSh
     doc_digits: this host's packed operand slice, cut over its mesh
     (`mesh.shard(mesh, shard_slice(...), PACKED_OPERAND_SPEC)`); the
     returned indices are GLOBAL document ids (the shard's offset applied,
-    padding slots left out).
+    padding slots left out).  The shard is ranked once, on its card, by the
+    step's own top-k, and only its <= k values and ids reach the host.  Among
+    equal scores the id returned is `torch.topk`'s choice, not the lowest.
     """
-    step = make_sharded_packed_search(ctx, mesh, d=d, top_k=top_k)
-    flat, _, _ = step(doc_digits, query_digits)
+    offset = shard.start * slots
+    valid = max(0, n_docs_global - offset)
+    step = make_sharded_packed_search(ctx, mesh, d=d, top_k=top_k, n_docs=valid)
+    _, vals, idx = step(doc_digits, query_digits)
     with span("search.to_host"):
-        scores = flat.cpu().numpy().astype(np.int64)
+        vals, idx = torch.stack([vals.long(), idx.long()]).cpu().numpy()
+        real = idx < valid      # a host with fewer than k documents ranks padding too
     with span("search.rank"):
-        offset = shard.start * slots
-        valid = min(scores.shape[0], max(0, n_docs_global - offset))
-        vals, idx = local_topk(scores[:valid], top_k, index_offset=offset)
-        return global_topk(vals, idx, top_k)
+        return global_topk(vals[real], idx[real] + offset, top_k)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -40,8 +40,11 @@ from .mesh import DOC_OPERAND_SPEC, DP_AXIS, PACKED_OPERAND_SPEC, TP_AXIS, Mesh,
 
 def _contexts(ctx: CryptoContext, mesh: Mesh) -> Dict[torch.device, CryptoContext]:
     """One context per device of the mesh; `ctx` itself on its own device (its
-    tables' device: `ctx.device` may name the card without its index)."""
-    return {dev: ctx if dev == ctx.p.device else CryptoContext(ctx.params, dev)
+    tables' device: `ctx.device` may name the card without its index).  The
+    other cards' contexts are kept in `ctx`'s cache, so building a step again
+    builds none."""
+    return {dev: ctx if dev == ctx.p.device else
+            ctx.cached(("card_context", dev), lambda: CryptoContext(ctx.params, dev))
             for dev in dict.fromkeys(mesh.devices)}
 
 

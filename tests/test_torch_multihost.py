@@ -1,9 +1,9 @@
 """The port's multi-host search against the JAX package's `parallel/multihost.py`.
 
 Everything the JAX package's tests check (partitioning, local and merged
-top-k, the single-process pass-through, a two-host search against the
-int64 oracle), each also held equal to the JAX function on the same
-inputs, then two real worker processes (`python -m
+top-k, the single-process pass-through, host-shard searches of two and
+three hosts on one- and two-shard meshes against the int64 oracle), each
+also held equal to the JAX function on the same inputs, then two real worker processes (`python -m
 fhe_icp_tpu_torch.parallel.multihost`, gloo on 127.0.0.1, on the CPU)
 that must both print the exact global top-k the JAX package's merge
 gives.  Tolerance: none.
@@ -80,26 +80,39 @@ def test_global_topk_single_process_passthrough():
     assert mh.initialize() == 0 and mh.initialize(num_processes=1) == 0
 
 
-def test_search_host_shard_matches_oracle_and_jax():
-    """Two simulated hosts, each a one-shard mesh over its slice; the JAX
-    package's search_host_shard on the same digits gives the same answer."""
+@pytest.fixture(scope="module")
+def packed_store():
+    """29 test-512 documents (a ragged tail: 8 groups of 4 slots) and a query,
+    packed as the port's operands, with the clear int64 scores."""
     rt = FheRuntime("test-512", rlk_levels=[], device="cpu")
     rt.generate_keys(seed=3)
     ctx, sk = rt.ctx, rt.keys.sk
-    d, k = 128, 5
-    slots = pack.slots_per_ct(ctx.n, d)                 # 4
-    n_docs, n_hosts = 29, 2                             # a ragged tail on purpose
-    groups = -(-n_docs // slots)                        # 8 groups
-    docs = RNG.integers(-1000, 1001, size=(n_docs, d)).astype(np.int32)
-    query = RNG.integers(-1000, 1001, size=(d,)).astype(np.int32)
+    d, n_docs = 128, 29
+    rng = np.random.default_rng(43)
+    docs = rng.integers(-1000, 1001, size=(n_docs, d)).astype(np.int32)
+    query = rng.integers(-1000, 1001, size=(d,)).astype(np.int32)
     cts = rt.encrypt_vector(docs, seed=5)
     packed = pack.pack_ciphertexts(ctx, cts.data, d, cts.level)
     dop = pack.make_packed_doc_operand(ctx, packed, cts.level)
     qop = pack.make_packed_query_operand(ctx, sk, torch.from_numpy(query), d, cts.level)
+    truth = docs.astype(np.int64) @ query.astype(np.int64)
+    return ctx, d, dop, qop, truth
+
+
+@pytest.mark.parametrize("n_hosts,n_dp,k", [(2, 1, 5), (2, 2, 5), (3, 1, 8)])
+def test_search_host_shard_matches_oracle_and_jax(packed_store, n_hosts, n_dp, k):
+    """Simulated hosts, each an n_dp-shard mesh over its slice; the JAX
+    package's search_host_shard on the same digits gives the same values and
+    ids.  With 3 hosts the last holds 5 real documents, fewer than k = 8."""
+    ctx, d, dop, qop, truth = packed_store
+    assert len(np.unique(truth)) == len(truth)          # no ties: ids are comparable
+    n_docs = len(truth)
+    slots = pack.slots_per_ct(ctx.n, d)                 # 4
+    groups = dop.digits.shape[1] // 4                   # 8
 
     jctx = JaxContext(jax_params("test-512"))
-    jm = jmesh.make_mesh(1, shape=(1, 1))
-    mesh = make_mesh(1, (1, 1), device="cpu")
+    jm = jmesh.make_mesh(n_dp, shape=(n_dp, 1))
+    mesh = make_mesh(n_dp, (n_dp, 1), device="cpu")
     per_host, jper_host = [], []
     for sh in mh.partition_groups(groups, n_hosts):
         local = mh.shard_slice(dop.digits, sh)
@@ -113,8 +126,8 @@ def test_search_host_shard_matches_oracle_and_jax():
     for (v, i), (jv, ji) in zip(per_host, jper_host):
         np.testing.assert_array_equal(v, jv)
         np.testing.assert_array_equal(i, ji)
+    assert len(per_host[-1][0]) == min(k, n_docs - sh.start * slots)   # no padding ids
     vals, idx = mh.merge_topk(per_host, k)
-    truth = docs.astype(np.int64) @ query.astype(np.int64)
     order = np.argsort(-truth, kind="stable")[:k]
     assert (vals == truth[order]).all() and (truth[idx] == truth[order]).all()
 

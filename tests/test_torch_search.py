@@ -10,6 +10,7 @@ ties differently).  Tolerance: none.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,8 @@ from fhe_icp_tpu_torch.ops import pack
 from fhe_icp_tpu_torch.ops.context import CryptoContext
 from fhe_icp_tpu_torch.ops.params import get_params
 from fhe_icp_tpu_torch.parallel import search
-from fhe_icp_tpu_torch.parallel.mesh import BATCH_SPEC, PACKED_OPERAND_SPEC, make_mesh, shard
+from fhe_icp_tpu_torch.parallel.mesh import (BATCH_SPEC, DP_AXIS, PACKED_OPERAND_SPEC, TP_AXIS,
+                                             make_mesh, shard)
 
 PRESET, D = "test-512", 64
 
@@ -145,3 +147,21 @@ def test_sharded_search_matches_jax(shape):
     np.testing.assert_array_equal(scores.numpy().astype(np.int64),
                                   docs.astype(np.int64) @ query.astype(np.int64))
     _check_topk(vals.numpy(), idx.numpy(), scores.numpy(), np.asarray(jvals))
+
+
+def test_other_cards_contexts_are_built_once(monkeypatch):
+    """A step on a mesh that spans cards builds each other card's context once
+    for a given context, however many steps are built.  A CPU device with an
+    index stands in for a second card."""
+    ctx = CryptoContext(get_params(PRESET), device="cpu")
+    built = []
+    real = search.CryptoContext
+    monkeypatch.setattr(search, "CryptoContext", lambda *a: built.append(a[1]) or real(*a))
+    other = torch.device("cpu", 0)
+    mesh = types.SimpleNamespace(shape={DP_AXIS: 2, TP_AXIS: 1},
+                                 devices=[torch.device("cpu"), other])
+    for _ in range(3):
+        search.make_sharded_packed_search(ctx, mesh, d=D)
+    search.make_sharded_fastdot_search(ctx, mesh)
+    assert built == [other]
+    assert search._contexts(ctx, mesh)[other] is search._contexts(ctx, mesh)[other]
