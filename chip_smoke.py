@@ -2,11 +2,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-times [DIR]
+    python3 chip_smoke.py --decode-times [DIR]
 
 The second form times K2 alone at the paths' shapes (`k2_times`), one JSON
 line per entry and shape, with the package in DIR: an earlier tree of the
 port unpacked there (`git archive <commit> | tar -x -C DIR`) runs its own
 K2 at the same shapes, so that two trees compare on one card in one run.
+The third times one ring-16384 `mod_switch` + `decrypt_dot` the same way
+(`decode_times`): host ms, device time and the device operations a call.
 
 Phases (any failure raises and the exit code is not 0):
 
@@ -33,7 +36,13 @@ Phases (any failure raises and the exit code is not 0):
    regime (32 and 1024 products) and 16-bit sub-digits at pairwise-4096
    (an odd 33 and the store's 2048); digits one word into their storage
    are refused.  The build must show every keyswitch instance without a
-   stack frame.
+   stack frame.  The modulus switch's lift and tail and the one-coefficient
+   decrypt (`MS_SHAPES`, `DECRYPT_SHAPES`): one ring-16384 compare (R = 2,
+   l = 12 -> 11, then the decrypt at l = 11), the same product
+   unrelinearized (k = 3), a 6250-row store switch at N = 4096 and l = 3 -> 2,
+   and test-512 at a batch of 64; the build must show their kernels without
+   a stack frame, and a decrypt one word into its storage is refused.  Then
+   one ring-16384 `mod_switch` + `decrypt_dot` timed (`decode_times`).
 3. The main path at full width, preset pairwise-4096 (N = 4096, 2 limbs):
    keys from seed 0, 65,536 per-document quantized unit vectors
    (d = 128, scale 1000) encrypted in batches of 8192, packed into 2048
@@ -104,7 +113,9 @@ Phases (any failure raises and the exit code is not 0):
    each also by its device time per call from torch.profiler.  The
    keyswitch inner product at one ring-16384 relinearization (the JSON
    row) and the store's re-key, by device time with the key in L2 and
-   after a 100 MB write.
+   after a 100 MB write.  The modulus switch's lift and tail at one
+   ring-16384 compare (the JSON rows) and at the 6250-row store switch,
+   and the decrypt at one compare (the JSON row), by device time a call.
 8. The rest of the package (`rest_of_package`), after phase 7 and before
    phase 6's times.  First the fastdot product's kernel (`csrc/fastdot.cu`)
    bit-exact against its plain version at a ragged batch at pairwise-4096
@@ -167,7 +178,8 @@ import torch
 
 # The port's package: this checkout's, or the one in DIR after --k2-times.
 _ARGS = sys.argv[1:]
-TREE = os.path.abspath(_ARGS[1] if _ARGS[:1] == ["--k2-times"] and len(_ARGS) > 1
+_TIMES = ("--k2-times", "--decode-times")
+TREE = os.path.abspath(_ARGS[1] if _ARGS[:1] and _ARGS[0] in _TIMES and len(_ARGS) > 1
                        else os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, TREE)
 
@@ -175,14 +187,14 @@ from fhe_icp_tpu_torch import cli, entry, kernels  # noqa: E402
 from fhe_icp_tpu_torch.batch import BatchProcessor  # noqa: E402
 from fhe_icp_tpu_torch.models.embedder import HashingEmbedder  # noqa: E402
 from fhe_icp_tpu_torch.models.reduction import DimensionReducer  # noqa: E402
-from fhe_icp_tpu_torch.ops import (arith, galois, keyswitch_cuda, noise, ntt_cuda,  # noqa: E402
-                                   pack, pack_cuda)
+from fhe_icp_tpu_torch.ops import (arith, cipher, dot, galois, keyswitch_cuda,  # noqa: E402
+                                   noise, ntt_cuda, pack, pack_cuda)
 from fhe_icp_tpu_torch.ops import primes as pr  # noqa: E402
 from fhe_icp_tpu_torch.ops.cipher import Ciphertext, decrypt_coeff, rekey_keygen  # noqa: E402
 from fhe_icp_tpu_torch.ops.context import CryptoContext  # noqa: E402
 from fhe_icp_tpu_torch.ops.modmath import mont_mul, to_mont  # noqa: E402
 from fhe_icp_tpu_torch.ops.ntt import build_plan  # noqa: E402
-from fhe_icp_tpu_torch.ops.params import get_params  # noqa: E402
+from fhe_icp_tpu_torch.ops.params import CryptoParams, get_params  # noqa: E402
 from fhe_icp_tpu_torch.ops.runtime import FheRuntime  # noqa: E402
 from fhe_icp_tpu_torch.parallel import ici  # noqa: E402
 from fhe_icp_tpu_torch.parallel.mesh import (PACKED_OPERAND_SPEC, SP_AXIS, gather,  # noqa: E402
@@ -228,10 +240,17 @@ KERNELS = {
                         "none: XLA fused fhe_icp_tpu/ops/arith.py's digit loop"),
     "fastdot_product": ("fhe_icp_tpu_torch/csrc/fastdot.cu",
                         "none: XLA's int8 dot_general in fhe_icp_tpu/ops/fastdot.py"),
+    "modswitch_lift": ("fhe_icp_tpu_torch/csrc/modswitch.cu",
+                       "none: XLA fused fhe_icp_tpu/ops/arith.py::mod_switch"),
+    "modswitch_tail": ("fhe_icp_tpu_torch/csrc/modswitch.cu",
+                       "none: XLA fused fhe_icp_tpu/ops/arith.py::mod_switch"),
+    "decrypt_coeff": ("fhe_icp_tpu_torch/csrc/modswitch.cu",
+                      "none: XLA fused fhe_icp_tpu/ops/cipher.py::decrypt_coeff"),
 }
 # The kernels each path must launch.
 MAIN_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "pack_score")
-COMPARE_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "keyswitch_inner")
+COMPARE_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "keyswitch_inner", "modswitch_lift",
+                        "modswitch_tail", "decrypt_coeff")
 NOT_ON_COMPARE_PATH = ("pack_score", "all_to_all", "ntt_cyclic_fwd", "ntt_cyclic_inv")
 SHARD_PATH_KERNELS = ("all_to_all", "pack_score", "ntt_fwd", "ntt_cyclic_fwd",
                       "ntt_cyclic_inv")
@@ -333,6 +352,10 @@ def device_and_build() -> str:
     fd = {k: v for k, v in report.items() if k.startswith("fastdot_product_kernel")}
     check(len(fd) == 1 and all(st == 0 for _, st in fd.values()),
           f"the fastdot product with a stack frame, or missing from the build log: {fd}")
+    ms = {k: v for k, v in report.items() if k.startswith(
+        ("modswitch_lift_kernel", "modswitch_tail_kernel", "decrypt_coeff_kernel"))}
+    check(len(ms) == 7 and all(st == 0 for _, st in ms.values()),
+          f"modswitch and decrypt kernels with a stack frame, or missing from the build log: {ms}")
     print("kernels:", " ".join(KERNELS))
     return smi
 
@@ -349,8 +372,9 @@ def ptxas_report(log: str) -> dict:
 
     K2's templates are named ntt_block_kernel<fwd, twist, C> and
     ntt_warp_kernel<fwd, twist, E>, the keyswitch's keyswitch_inner_kernel<BT>,
-    the fastdot product's fastdot_product_kernel<stages>; other kernels keep
-    ptxas's name.
+    the fastdot product's fastdot_product_kernel<stages>, the decrypt's
+    decrypt_coeff_kernel<C>, and the modswitch_lift_kernel and
+    modswitch_tail_kernel by their names; other kernels keep ptxas's name.
     """
     out, name = {}, None
     for line in log.splitlines():
@@ -360,9 +384,13 @@ def ptxas_report(log: str) -> dict:
             t = re.search(r"(ntt_(?:block|warp)_kernel)ILb(\d)ELb(\d)ELi(\d+)E", name)
             if t:
                 name = f"{t.group(1)}<{t.group(2)}, {t.group(3)}, {t.group(4)}>"
-            t = re.search(r"(keyswitch_inner_kernel|fastdot_product_kernel)ILi(\d+)E", name)
+            t = re.search(r"(keyswitch_inner_kernel|fastdot_product_kernel|decrypt_coeff_kernel)"
+                          r"ILi(\d+)E", name)
             if t:
                 name = f"{t.group(1)}<{t.group(2)}>"
+            t = re.search(r"\d(modswitch_(?:lift|tail)_kernel)E", name)
+            if t:
+                name = t.group(1)
             continue
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and name:
@@ -412,7 +440,9 @@ def kernels_vs_plain(rng) -> dict:
     compare_plans_vs_plain(rng, errs)
     user_plans_vs_plain(rng, errs)
     keyswitch_vs_plain(rng, errs)
+    modswitch_vs_plain(rng, errs)
     all_to_all_vs_plain(rng, errs)
+    decode_times(TREE)
     return errs
 
 
@@ -533,6 +563,126 @@ def keyswitch_vs_plain(rng, errs: dict) -> None:
         f"{what} (B={b}, n_dig={per * lv}, L={lv + 1}, {preset})"
         for what, preset, lv, b, per in KS_SHAPES) + "; digits one word into their storage "
         "refused")
+
+
+# The modulus switch's shapes: (what, preset or (N, limbs), rows R = batch x 2, level l).
+MS_SHAPES = ((f"one {RING} compare", RING, 2, 12),
+             ("the store switch", (4096, 3), 6250, 3),
+             ("test-512, a batch of 64", "test-512", 128, 2),
+             ("test-512-mult, a batch of 64", "test-512-mult", 128, 3))
+# The decrypt's shapes: (what, preset or (N, limbs), batch B, k, level l, pt_corr).
+DECRYPT_SHAPES = ((f"one {RING} compare, switched", RING, 1, 2, 11, 1_000_003),
+                  (f"one {RING} product unrelinearized", RING, 1, 3, 12, 1),
+                  (f"the {RING} product unrelinearized, switched", RING, 1, 3, 11, 77),
+                  ("test-512, a batch of 64", "test-512", 64, 2, 2, 1),
+                  ("test-512, a batch of 64 unrelinearized", "test-512", 64, 3, 2, 5),
+                  (f"an odd {PRESET} batch of 33", PRESET, 33, 2, 2, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def ms_context(preset) -> CryptoContext:
+    """A context on the card: a preset's, or (N, limbs) on 31-bit primes."""
+    if isinstance(preset, tuple):
+        n, limbs = preset
+        return CryptoContext(CryptoParams(f"n{n}-l{limbs}", n=n, n_limbs=limbs,
+                                          allow_insecure=True), DEVICE)
+    return CryptoContext(get_params(preset), DEVICE)
+
+
+def random_secret(rng, ctx) -> cipher.SecretKey:
+    """A ternary secret's NTT-domain Montgomery rows on the card."""
+    s = torch.from_numpy(rng.integers(-1, 2, size=ctx.n).astype(np.int32)).to(DEVICE)
+    l = ctx.n_limbs
+    p, pinv = ctx.lp(l), ctx.lpinv(l)
+    s_m = to_mont(ntt_cuda.ntt_fwd(ctx.plan, cipher.centered_residues(ctx, s, l)), p, pinv,
+                  ctx.lr2(l))
+    return cipher.SecretKey(s=s, s_ntt_mont=s_m, s2_ntt_mont=mont_mul(s_m, s_m, p, pinv))
+
+
+def decrypt_operands(rng, preset, b: int, k: int, lv: int, pt_corr: int, j: int = None):
+    """(ctx, sk, ct, w): random canonical (b, k, lv, N) rows, a random secret and
+    the weight row of coefficient j (default N - 1)."""
+    ctx = ms_context(preset)
+    data = random_residues(rng, ctx.plan, (b, k, lv, ctx.n))
+    w = cipher.coeff_weights(ctx, ctx.n - 1 if j is None else j, lv)
+    return ctx, random_secret(rng, ctx), Ciphertext(data, lv, True, pt_corr), w
+
+
+def modswitch_vs_plain(rng, errs: dict) -> None:
+    """The lift, the tail and the one-coefficient decrypt against their plain
+    versions on the card at `MS_SHAPES` and `DECRYPT_SHAPES`; a decrypt whose
+    rows start one word into their storage is refused."""
+    from fhe_icp_tpu_torch.ops import modswitch_cuda     # not in trees --decode-times may load
+    for what, preset, rows, lv in MS_SHAPES:
+        ctx = ms_context(preset)
+        c = random_residues(rng, arith._single_prime_plan(ctx, ctx.primes[lv - 1]),
+                            (rows, 1, ctx.n))
+        x = random_residues(rng, ctx.plan, (rows, lv, ctx.n))
+        delta = random_residues(rng, ctx.plan, (rows, lv - 1, ctx.n))
+        for name, got, want in (
+                ("modswitch_lift", lambda: modswitch_cuda.lift(ctx, c, lv),
+                 lambda: modswitch_cuda.lift_ref(ctx, c, lv)),
+                ("modswitch_tail", lambda: modswitch_cuda.tail(ctx, x, delta, lv),
+                 lambda: modswitch_cuda.tail_ref(ctx, x, delta, lv))):
+            e = max_abs_err(got(), want())
+            check(e == 0, f"{name} at {what} (R={rows}, l={lv}, N={ctx.n}): max abs err {e}")
+            errs[name] = max(errs[name], e)
+    for what, preset, b, k, lv, pt_corr in DECRYPT_SHAPES:
+        ctx, sk, ct, w = decrypt_operands(rng, preset, b, k, lv, pt_corr)
+        e = max_abs_err(modswitch_cuda.decrypt_coeff(ctx, sk, ct, w),
+                        modswitch_cuda.decrypt_coeff_ref(ctx, sk, ct, w))
+        check(e == 0, f"decrypt_coeff at {what} (B={b}, k={k}, l={lv}, N={ctx.n}): "
+              f"max abs err {e}")
+        errs["decrypt_coeff"] = max(errs["decrypt_coeff"], e)
+    ctx, sk, ct, w = decrypt_operands(rng, "test-512", 3, 2, 2, 1)
+    buf = torch.empty(ct.data.numel() + 1, dtype=ct.data.dtype, device=DEVICE)
+    view = buf[1:].view(ct.data.shape)
+    view.copy_(ct.data)
+    try:
+        modswitch_cuda.decrypt_coeff(ctx, sk, Ciphertext(view, ct.level), w)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "decrypt_coeff took rows one word into their storage")
+    print("  modswitch_lift and modswitch_tail bit-exact: " + "; ".join(
+        f"{what} (R={rows}, l={lv} -> {lv - 1})" for what, _, rows, lv in MS_SHAPES))
+    print("  decrypt_coeff bit-exact: " + "; ".join(
+        f"{what} (B={b}, k={k}, l={lv}, pt_corr {pc})" for what, _, b, k, lv, pc in DECRYPT_SHAPES)
+        + "; rows one word into their storage refused")
+
+
+def decode_times(tree: str) -> dict:
+    """One ring-16384 `arith.mod_switch` + `dot.decrypt_dot` at level 12 of a
+    random degree-1 ciphertext, as the compare runs them: the host clock over
+    the call and a synchronize (median of 20 after the first), the device time
+    a call and the device operations a call with their names (torch.profiler).
+    Uses only what every tree of the port has, so that --decode-times times an
+    earlier tree the same way."""
+    ctx = ms_context(RING)
+    rng = np.random.default_rng(19)
+    sk = random_secret(rng, ctx)
+    ct = Ciphertext(random_residues(rng, ctx.plan, (2, 12, ctx.n)), 12, True, 1)
+
+    def run():
+        return dot.decrypt_dot(ctx, sk, arith.mod_switch(ctx, ct), DIM)
+    ms_host = host_ms(run, reps=20)
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    calls = 10
+    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = collections.Counter(e.name for e in dev)
+    out = {"tree": tree, "what": f"{RING} mod_switch + decrypt_dot (R=2, l=12 -> 11)",
+           "host_ms": ms_host,
+           "device_us": sum(e.time_range.elapsed_us() for e in dev) / calls if dev else None,
+           "device_ops": len(dev) / calls if dev else None,
+           "ops": {n[:60]: c / calls for n, c in names.most_common()}, "card": card()}
+    print("  decode times: " + json.dumps(out), flush=True)
+    return out
 
 
 NTT_ENTRIES = (("ntt_fwd", ntt_cuda.ntt_fwd, ntt_cuda.ntt_fwd_ref),
@@ -1203,8 +1353,9 @@ def ring_chain(pair: np.ndarray) -> dict:
     got, want = int(run()), int(pair[0].astype(np.int64) @ pair[1])
     per_run = dict(collections.Counter(kernels.launches) - before)
     check(got == want, f"{RING} chain: {got}, want {want}")
-    check(per_run.get("keyswitch_inner", 0) == 1,
-          f"{RING} chain launched keyswitch_inner {per_run.get('keyswitch_inner', 0)} times")
+    for name in ("keyswitch_inner", "modswitch_lift", "modswitch_tail", "decrypt_coeff"):
+        check(per_run.get(name, 0) == 1,
+              f"{RING} chain launched {name} {per_run.get(name, 0)} times, not once")
     print(f"  (d) config 4: {RING} (N={ctx.n}, L={ctx.n_limbs}) mul_ct -> relinearize -> "
           f"mod_switch -> decrypt_dot == a . b ({got}); our kernels' launches a run: {per_run}")
     return dict(name="(d) config 4", runs={"mul + relinearize + mod_switch + decrypt_dot": run})
@@ -2009,6 +2160,7 @@ def timings(rng, errs: dict, launches: dict, smi: str, measured: list) -> list:
     pack_score_timing(-(-N_DOCS_SHARDED // slots // PAD_GROUPS) * PAD_GROUPS // N_SHARDS)
     out.append(all_to_all_timings())
     out.append(keyswitch_timings(rng))
+    out += modswitch_timings(rng)
     out += measured
     for row in out:
         src, rep = KERNELS[row["name"]]
@@ -2090,6 +2242,58 @@ def k2_only(tree: str) -> None:
         print(json.dumps({"tree": tree, "entry": t["name"], "rows": t["rows"], "limbs": t["l"],
                           "n": t["n"], "ms": t["ms"], "device_us": t["dev_us"], "card": smi}),
               flush=True)
+
+
+def modswitch_timings(rng) -> list:
+    """The lift, the tail and the decrypt at one ring-16384 compare's shapes
+    (the JSON rows: R = 2, l = 12 -> 11; B = 1, k = 2 at l = 11) and the lift
+    and tail at the 6250-row store switch, each checked bit-exact on its timed
+    inputs: CUDA events around the wrapper and device time per call, beside
+    the plain version and the bound (each word read once and written once;
+    four 32-bit multiplies a Montgomery product)."""
+    from fhe_icp_tpu_torch.ops import modswitch_cuda     # not in trees --decode-times may load
+    rows = []
+    for what, preset, r, lv in MS_SHAPES[:2]:          # the compare's, then the store's
+        ctx = ms_context(preset)
+        n = ctx.n
+        c = random_residues(rng, arith._single_prime_plan(ctx, ctx.primes[lv - 1]), (r, 1, n))
+        x = random_residues(rng, ctx.plan, (r, lv, n))
+        delta = random_residues(rng, ctx.plan, (r, lv - 1, n))
+        cases = (("modswitch_lift", lambda: modswitch_cuda.lift(ctx, c, lv),
+                  lambda: modswitch_cuda.lift_ref(ctx, c, lv), 4 * r * n * lv,
+                  3 * 4 * r * (lv - 1) * n),
+                 ("modswitch_tail", lambda: modswitch_cuda.tail(ctx, x, delta, lv),
+                  lambda: modswitch_cuda.tail_ref(ctx, x, delta, lv), 4 * 3 * r * (lv - 1) * n,
+                  4 * r * (lv - 1) * n))
+        for name, kern, ref, byts, muls in cases:
+            row = time_ms_kernel(name, f"{what} (R={r}, l={lv} -> {lv - 1}, N={n})", kern, ref,
+                                 byts, muls)
+            if preset == RING:
+                rows.append(row)
+    what, preset, b, k, lv, pc = DECRYPT_SHAPES[0]
+    ctx, sk, ct, w = decrypt_operands(rng, preset, b, k, lv, pc)
+    n = ctx.n
+    rows.append(time_ms_kernel(
+        "decrypt_coeff", f"{what} (B={b}, k={k}, l={lv}, N={n})",
+        lambda: modswitch_cuda.decrypt_coeff(ctx, sk, ct, w),
+        lambda: modswitch_cuda.decrypt_coeff_ref(ctx, sk, ct, w),
+        4 * (b + 1) * k * lv * n + 4 * b, 4 * k * b * lv * n))
+    return rows
+
+
+def time_ms_kernel(name: str, what: str, kern, ref, byts: int, muls: int) -> dict:
+    """One of the modswitch kernels timed and checked (see `modswitch_timings`)."""
+    e = max_abs_err(kern(), ref())
+    check(e == 0, f"{name} at {what} (the timed inputs): max abs err {e}")
+    ms = cuda_ms(kern, reps=20)
+    dev = device_us_per_call(kern, name, calls=20)
+    plain = cuda_ms(ref, reps=3, warmup=1)
+    bound_ms, kind, why = bound(byts, muls, peaks().int32_mul_tops * 1e12)
+    print(f"  {name} at {what}: {ms:.4f} ms (CUDA events around the wrapper); device time per "
+          f"call {fmt_us(dev)}; bit-exact; plain {plain:.3f} ms; bound {bound_ms:.5f} ms ({why}; "
+          f"{byts / 1e6:.2f} MB)")
+    return dict(name=name, ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=kind,
+                library_ms=None)
 
 
 def keyswitch_timings(rng) -> dict:
@@ -2296,8 +2500,18 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def decode_only(tree: str) -> None:
+    """--decode-times: one ring-16384 mod_switch + decrypt_dot, one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    decode_times(tree)
+
+
 if __name__ == "__main__":
     if _ARGS[:1] == ["--k2-times"]:
         k2_only(TREE)
+    elif _ARGS[:1] == ["--decode-times"]:
+        decode_only(TREE)
     else:
         main()

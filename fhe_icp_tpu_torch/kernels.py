@@ -19,8 +19,8 @@ include, fetches through the runtime.
 
 `launches` counts, per kernel, the launches made by the wrappers in
 `ops/ntt_cuda.py`, `ops/pack_cuda.py`, `ops/keyswitch_cuda.py`,
-`ops/fastdot_cuda.py` and `parallel/ici.py`; it lets a caller show that a
-run went through the kernels.
+`ops/fastdot_cuda.py`, `ops/modswitch_cuda.py` and `parallel/ici.py`; it
+lets a caller show that a run went through the kernels.
 """
 
 from __future__ import annotations
@@ -53,6 +53,9 @@ _SIGNATURES = {
     "fhe_enable_peer_access": [_I, _I],
     "fhe_keyswitch_inner": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fhe_fastdot_product": [_P, _P, _P, _I, _I, _I, _P],
+    "fhe_modswitch_lift": [_P] * 9 + [_I, _I, _I, _P],
+    "fhe_modswitch_tail": [_P] * 6 + [_I, _I, _I, _P],
+    "fhe_decrypt_coeff": [_P] * 14 + [_I] * 6 + [_P],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -18,7 +18,9 @@ digit-key inner product is one kernel (`keyswitch_cuda.inner_product`).
 
 In `_div_special` and `mod_switch` only the dropped limb leaves the NTT
 domain: its coefficient form gives the rounding correction, which is
-transformed forward over the remaining limbs.
+transformed forward over the remaining limbs.  `mod_switch`'s pointwise
+steps around those two transforms are two kernels (`modswitch_cuda.lift`
+and `.tail`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.profiling import span
-from . import keyswitch_cuda
+from . import keyswitch_cuda, modswitch_cuda
 from .cipher import Ciphertext, centered_residues
 from .context import CryptoContext, HybridTables
 from .modmath import (add_mod, barrett_reduce, i64, mont_mul, neg_mod, sub_mod, to_mont,
@@ -316,17 +318,12 @@ def mod_switch(ctx: CryptoContext, ct: Ciphertext) -> Ciphertext:
             f"(q'={ctx.q_at(l - 1).bit_length()} bits vs t={ctx.t.bit_length()} "
             f"bits, N={ctx.n})")
     with span("ct.mod_switch"):
-        lt = ctx.levels[l]
         lead = ct.data.shape[:-2]                            # (..., k)
-        flat = ct.data.reshape((-1,) + tuple(ct.data.shape[-2:]))   # (B*k, l, N)
+        flat = ct.data.contiguous().reshape((-1,) + tuple(ct.data.shape[-2:]))  # (B*k, l, N)
         pd_plan = _single_prime_plan(ctx, ctx.primes[l - 1])
         c_last = ntt_inv(pd_plan, flat[:, l - 1:, :])        # (B*k, 1, N) coeff
-        u = mont_mul(c_last, lt.t_inv_mont_pd[0, 0], ctx.p[l - 1, 0],
-                     ctx.p_neg_inv[l - 1, 0])                # [c*t^{-1}]_{p_d}
-        p, pinv = ctx.lp(l - 1), ctx.lpinv(l - 1)
-        w = _lift_centered(u, p, ctx.mu_p[: l - 1], lt.pd_half[0, 0], lt.pd_mod_pi)
-        delta = ntt_fwd(ctx.plan, mont_mul(w, ctx.t_mont_p[: l - 1], p, pinv))
-        out = mont_mul(sub_mod(flat[:, : l - 1, :], delta, p), lt.inv_pd_mont, p, pinv)
+        delta = ntt_fwd(ctx.plan, modswitch_cuda.lift(ctx, c_last, l))
+        out = modswitch_cuda.tail(ctx, flat, delta, l)
         return Ciphertext(out.reshape(lead + (l - 1, ctx.n)), l - 1, True,
                           ct.pt_corr * ctx.primes[l - 1] % ctx.t)
 

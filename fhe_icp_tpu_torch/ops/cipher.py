@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from . import modswitch_cuda
 from . import primes as pr
 from .context import CryptoContext
 from .modmath import (add_mod, barrett_reduce, from_mont, i64, mont_mul, shoup_mul,
@@ -431,16 +432,10 @@ def _pow_table(w: int, n: int, p: int) -> np.ndarray:
     return tbl
 
 
-def tree_sum_mod(x: torch.Tensor, p) -> torch.Tensor:
-    """Sum over the last axis mod p -> (..., 1) uint32."""
-    return u32(torch.remainder(i64(x).sum(dim=-1, keepdim=True), i64(p)))
-
-
 def decrypt_coeff(ctx: CryptoContext, sk: SecretKey, ct: Ciphertext,
                   j: int) -> torch.Tensor:
-    """Decrypt only coefficient j -> (...,) int32, skipping the full INTT."""
-    l = ct.level
-    p, pinv = ctx.lp(l), ctx.lpinv(l)
-    terms = mont_mul(_phase(ctx, sk, ct), coeff_weights(ctx, j, l), p, pinv)
-    res = tree_sum_mod(terms, p)                    # (..., l, 1)
-    return rns_decode_centered(ctx, res, l, ct.pt_corr)[..., 0]
+    """Decrypt only coefficient j -> (...,) int32, skipping the full INTT: the
+    phase, its product with `coeff_weights`, the limb sums and the RNS decode
+    in one kernel on the card (`modswitch_cuda.decrypt_coeff`)."""
+    ct = Ciphertext(ct.data.contiguous(), ct.level, ct.is_ntt, ct.pt_corr)
+    return modswitch_cuda.decrypt_coeff(ctx, sk, ct, coeff_weights(ctx, j, ct.level))

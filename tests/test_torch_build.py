@@ -67,3 +67,27 @@ def test_ptxas_report_names_k2_instances():
     assert report["ntt_warp_kernel<0, 0, 4>"] == (31, 8)
     assert report["_Z17all_to_all_kernelv"] == (32, 0)
     assert len(report) == 3
+
+
+MS_LOG = """\
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120decrypt_coeff_kernelILi8EEEv11DecryptArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 121 registers, used 1 barriers, 4352 bytes smem, 480 bytes cmem[0]
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121modswitch_lift_kernelEPK5uint4PS0_PKjS5_S5_S5_S5_S5_S5_xii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, 452 bytes cmem[0]
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121modswitch_tail_kernelEPK5uint4S2_PS0_PKjS5_S5_xii
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 25 registers, 428 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("name,want", [("decrypt_coeff_kernel<8>", (121, 0)),
+                                       ("modswitch_lift_kernel", (32, 0)),
+                                       ("modswitch_tail_kernel", (25, 16))])
+def test_ptxas_report_names_modswitch_kernels(name, want):
+    """The decrypt's cluster instances by C, the lift and the tail by name, so
+    that phase 1 finds all six and their stack frames."""
+    import chip_smoke
+    report = chip_smoke.ptxas_report(MS_LOG)
+    assert report[name] == want and len(report) == 3
